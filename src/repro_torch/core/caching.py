@@ -1,0 +1,111 @@
+"""Structural fingerprint cache for generated stencil modules.
+
+Per the paper (§2.3): stencils are hashed so that *reformatting* the Python
+source does not trigger re-codegen — the fingerprint is computed from the
+(normalized) Definition IR, not from source text.  Generated modules are
+written to a cache directory as real ``.py`` files (inspectable, steppable)
+and re-imported on subsequent runs if the fingerprint matches.
+
+The port keeps its own cache directory (``REPRO_TORCH_GT_CACHE``, default
+``<repo>/.gt_cache_torch/``) and prefixes every generated module name with
+``rt_``: the reference package computes identical fingerprints for the same
+IR, backend and options, and both packages' modules may live in one process.
+The ``cuda`` backend's fingerprint also carries ``codegen_cuda.CODEGEN_VERSION``
+so that a change to the kernel generator rebuilds the shared libraries.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import os
+import sys
+import threading
+from pathlib import Path
+from types import ModuleType
+from typing import Any, Dict, Optional
+
+from . import ir
+
+_CACHE_VERSION = "repro-gt-2"
+_MODULE_PREFIX = "rt_"
+_lock = threading.Lock()
+_memory_cache: Dict[str, ModuleType] = {}
+
+
+def cache_dir() -> Path:
+    root = os.environ.get("REPRO_TORCH_GT_CACHE")
+    if root:
+        p = Path(root)
+    else:
+        p = Path(__file__).resolve().parents[3] / ".gt_cache_torch"
+    p.mkdir(parents=True, exist_ok=True)
+    return p
+
+
+def fingerprint(
+    definition: ir.StencilDefinition,
+    backend: str,
+    options: Optional[Dict[str, Any]] = None,
+    pass_config: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Cache key for a generated module.
+
+    Keyed on the normalized Definition IR (so reformatting the python source
+    does not re-codegen), the backend, its codegen options, AND the
+    optimization-pass configuration: the same definition at a different
+    ``opt_level`` / pass set is a different generated module.  The names of
+    the registered passes participate too, so adding a pass to the pipeline
+    invalidates stale artifacts.
+    """
+    from . import passes  # local import: passes depends on analysis/ir only
+
+    version = _CACHE_VERSION
+    if backend == "cuda":
+        from .codegen_cuda import CODEGEN_VERSION
+
+        version = f"{version}+{CODEGEN_VERSION}"
+    payload = "|".join(
+        [
+            version,
+            backend,
+            repr(definition),
+            repr(sorted((options or {}).items())),
+            repr(sorted((pass_config or {}).items())),
+            repr(passes.PASS_NAMES),
+        ]
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def module_key(name: str, fp: str) -> str:
+    """The file stem of a generated module (and of its built kernel)."""
+    return f"{_MODULE_PREFIX}{name}_{fp}"
+
+
+def load_generated_module(name: str, fp: str, source: str, rebuild: bool = False) -> ModuleType:
+    """Write ``source`` to the cache (if needed) and import it as a module."""
+    key = module_key(name, fp)
+    with _lock:
+        if not rebuild and key in _memory_cache:
+            return _memory_cache[key]
+        module_name = f"_repro_gt_{key}"
+        try:
+            path = cache_dir() / f"{key}.py"
+            if rebuild or not path.exists() or path.read_text() != source:
+                # atomic: another process may import the same module meanwhile
+                tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+                tmp.write_text(source)
+                os.replace(tmp, path)
+            spec = importlib.util.spec_from_file_location(module_name, path)
+            assert spec and spec.loader
+            module = importlib.util.module_from_spec(spec)
+            sys.modules[module_name] = module
+            spec.loader.exec_module(module)
+        except OSError:
+            # read-only filesystem: exec in-memory
+            module = ModuleType(module_name)
+            module.__dict__["__file__"] = f"<generated {key}>"
+            exec(compile(source, f"<generated {key}>", "exec"), module.__dict__)
+        _memory_cache[key] = module
+        return module
