@@ -7,20 +7,32 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: every stencil below is generated and compiled with nvcc (sm_90a),
-   all sources at once, into ``.gt_cache_torch/``;
+   with the hand-written flash-attention and RG-LRU sources, all at once, into
+   ``.gt_cache_torch/``;
 3. kernel vs plain: each generated kernel against the plain torch backend on
    the same CUDA inputs, float64 and float32, at 256 x 256 x 80 and on a
    ragged domain; the hdiff and vadv kernels also against their hand-written
    oracles (``kernels/*/ref.py``), vadv's residual, and the stencil corpus;
+   the flash-attention kernel against its plain version, float32 (2e-6) and
+   bfloat16 (2e-2), on the reference's kernel-test cases and at the widths of
+   phi3-mini-3.8b, stablelm-12b and recurrentgemma-2b; the RG-LRU kernel at
+   RecurrentGemma-2B's width (4, 4096, 2560), float32 and bfloat16;
 4. the paths, each with every launch count zeroed just before it and read
-   just after: the kernel entry points (``ops.hdiff``, ``ops.vadv``), and the
-   eager climate step advect → euler → diffuse → vadv_system → vadv for 10
-   steps at 256 x 256 x 80 float64 on ``storage`` fields, held against the
-   same step on the torch backend and, on a small domain, the numpy backend;
+   just after: (A) the kernel entry points (``ops.hdiff``, ``ops.vadv``);
+   (B) the eager climate step advect → euler → diffuse → vadv_system → vadv
+   for 10 steps at 256 x 256 x 80 float64 on ``storage`` fields, held against
+   the same step on the torch backend and, on a small domain, the numpy
+   backend; (C) LM serving of phi3-mini-3.8b at full width and depth with
+   random weights: ``make_cache(4, 2080)``, ``prefill`` of a 4 x 2048 prompt
+   through the flash kernel (32 launches), 32 greedy ``decode_step``s (no
+   launch), held against the same run through the plain ``chunked``
+   attention in bfloat16 and in float32; (D) ``ops.rglru_scan`` as a user
+   calls it;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
-   (euler: ``torch.add``; diffuse: ``conv3d``), and the least time the card
-   could take (its bound); ``ops.hdiff`` and ``ops.vadv`` also end to end.
+   (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
+   ``scaled_dot_product_attention``), and the least time the card could take
+   (its bound); ``ops.hdiff`` and ``ops.vadv`` also end to end.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -31,6 +43,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +58,12 @@ H = 3  # halo of the climate step and of hdiff
 NSTEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # H100 SXM, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "phi3-mini-3.8b", 4, 2048, 32
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}  # the reference's kernel tests
+RGLRU_SHAPE = (4, 4096, 2560)  # RecurrentGemma-2B's width, batch 4
+RGLRU_TOL = {"float32": 5e-6, "bfloat16": 5e-2}
+LM_BF16_REL = 5e-2  # bf16 logits, flash vs chunked: max |diff| <= 5e-2 * max |logit|
 TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}  # (rtol, atol) kernel vs plain
 
 
@@ -76,13 +95,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import get_arch
     from repro_torch.core import codegen_cuda, gtscript, ir, ir_json, storage
     from repro_torch.core.gtscript import GTScriptSemanticError
     from repro_torch.core.stencil import build_from_definition
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.hdiff import ops as hdiff_ops
     from repro_torch.kernels.hdiff.ref import hdiff_ref
     from repro_torch.kernels.vadv import ops as vadv_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.kernels.vadv.ref import vadv_ref
+    from repro_torch.models import build_model
     from repro_torch.stencils import forecast, hdiff, vadv, vintg
 
     dev = torch.device("cuda")
@@ -139,12 +164,13 @@ def main() -> int:
     if rejected != expected_rejected:
         raise AssertionError(f"corpus: cuda rejected {rejected}, the reference's limit rejects "
                              f"{expected_rejected}")
-    kernels = [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
+    # the hand-written kernels first: the flash source takes longest
+    kernels = [flash_ops.KERNEL, rglru_ops.KERNEL] + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     for k in kernels:
         k.start_build()
     for k in kernels:
         k.finish_build()
-    log(f"build: {len(S) + len(corpus)} stencils, {len({k.key for k in kernels})} CUDA sources compiled "
+    log(f"build: {len(S) + len(corpus)} stencils and 2 hand-written kernels, {len({k.key for k in kernels})} CUDA sources compiled "
         f"for sm_90a in {time.perf_counter() - t0:.1f} s (corpus programs rejected by the written-API "
         f"limit: {rejected})")
 
@@ -241,6 +267,78 @@ def main() -> int:
                 raise AssertionError(f"corpus {pname}: kernel differs from plain on {n!r}")
     log(f"check corpus: {len(corpus)} programs, max_abs_err {worst:.3e} (rtol 1e-12, atol 1e-12)")
 
+    # the hand-written LM kernels against their plain versions (ref.py)
+    tgen = torch.Generator(device=dev)
+
+    def normal(shape, dtype, seed):
+        tgen.manual_seed(seed)
+        return torch.randn(shape, generator=tgen, device=dev, dtype=torch.float32).to(getattr(torch, dtype))
+
+    def check_flash(label, dtype, q_shape, kv_shape, **kw):
+        """The kernel against the plain version on the same inputs: in float64
+        for float32 inputs (the float32 plain version's own rounding of the
+        scores is of the order of the 2e-6 tolerance at these lengths), in
+        float32 for bfloat16 inputs, as the reference's kernel tests."""
+        q, k, v = normal(q_shape, dtype, 1), normal(kv_shape, dtype, 2), normal(kv_shape, dtype, 3)
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        work = (lambda x: x.double()) if dtype == "float32" else (lambda x: x)
+        ref = flash_attention_ref(work(q), work(k), work(v), **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        err = float((got.double() - ref.double()).abs().max())
+        opts = {n: (int(x) if isinstance(x, torch.Tensor) else x) for n, x in kw.items()}
+        log(f"check flash {label:30s} {dtype:8s} q {q_shape} kv {kv_shape} {opts} max_abs_err {err:.3e} "
+            f"(rtol {tol:g}, atol {tol:g}; plain version in {'float64' if dtype == 'float32' else 'float32'})")
+        if not (torch.isfinite(got).all() and torch.allclose(got.double(), ref.double(), rtol=tol, atol=tol)):
+            raise AssertionError(f"flash {label} {dtype}: the kernel differs from the plain version by {err:.3e}")
+        return err
+
+    lm_full = get_arch(LM_ARCH).full
+    lm_hd = lm_full.resolved_head_dim
+    flash_cases = [  # (label, (B, S, H, Kh, Dh), options)
+        ("MHA", (1, 32, 4, 4, 32), {}),
+        ("GQA 4:1", (2, 64, 8, 2, 64), {}),
+        ("MQA ragged", (1, 48, 6, 1, 128), {}),
+        ("Dh 96", (2, 16, 4, 2, 96), {}),
+        (f"{LM_ARCH} prefill", (LM_BATCH, LM_PROMPT, lm_full.n_heads, lm_full.n_kv_heads, lm_hd), {}),
+        ("stablelm-12b GQA", (1, 2048, 32, 8, 160), {}),
+        ("recurrentgemma-2b MQA window", (1, 4096, 10, 1, 256), {"window": 2048}),
+    ]
+    flash_err = {}
+    for dtype in ("float32", "bfloat16"):
+        for label, (b_, s_, h_, kh_, dh_), kw in flash_cases:
+            flash_err[(label, dtype)] = check_flash(label, dtype, (b_, s_, h_, dh_), (b_, s_, kh_, dh_),
+                                                    causal=True, **kw)
+    check_flash("window + cap", "float32", (2, 64, 4, 32), (2, 64, 4, 32), causal=True, window=16, cap=20.0)
+    for t in (0, 13, 31):
+        pos = torch.tensor(t, dtype=torch.int32, device=dev)
+        check_flash(f"decode row t={t}", "float32", (1, 1, 4, 32), (1, 32, 2, 32), causal=True, q_offset=t,
+                    kv_len=t + 1)
+        check_flash(f"decode row t={t} (device offsets)", "float32", (1, 1, 4, 32), (1, 32, 2, 32), causal=True,
+                    q_offset=pos, kv_len=pos + 1)
+
+    def rglru_inputs(dtype, seed):
+        n, _, d = RGLRU_SHAPE
+        tgen.manual_seed(seed)
+        a_ = 0.5 + 0.499 * torch.rand(RGLRU_SHAPE, generator=tgen, device=dev)
+        return (a_.to(getattr(torch, dtype)), normal(RGLRU_SHAPE, dtype, seed + 1),
+                normal((n, d), dtype, seed + 2))
+
+    rglru_err = {}
+    for dtype in ("float32", "bfloat16"):
+        a_rg, x_rg, h_rg = rglru_inputs(dtype, 11)
+        got, ref = rglru_ops.rglru_scan(a_rg, x_rg, h_rg), rglru_scan_ref(a_rg, x_rg, h_rg)
+        torch.cuda.synchronize()
+        tol = RGLRU_TOL[dtype]
+        rglru_err[dtype] = float((got.float() - ref.float()).abs().max())
+        log(f"check rglru_scan {RGLRU_SHAPE} {dtype:8s} max_abs_err {rglru_err[dtype]:.3e} (rtol {tol:g}, atol {tol:g})")
+        if not (torch.isfinite(got).all() and torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"rglru_scan {dtype}: the kernel differs from the plain version")
+    x_rg = normal(RGLRU_SHAPE, "float32", 12)
+    if not torch.equal(rglru_ops.rglru_scan(torch.zeros_like(x_rg), x_rg), x_rg):
+        raise AssertionError("rglru_scan: zero decay does not give y == b exactly")
+    log("check rglru_scan zero decay: y == b exactly")
+
     # ---------------------------------------------------------------- 4. the paths
     def only_these_ran(path_name, launches):
         """The module-level counts (every live kernel) hold no launch beyond
@@ -334,6 +432,109 @@ def main() -> int:
     log(f"climate {small}, 3 steps: max deviation from the numpy backend {e:.3e} (rtol 1e-12)")
     if not np.allclose(fs_k["phi"].to_numpy(), fs_n["phi"].to_numpy(), rtol=1e-12, atol=1e-12):
         raise AssertionError("climate step: the kernels differ from the numpy backend")
+
+    # path C: LM serving, phi3-mini-3.8b at full width and depth, random weights
+    lm_cfg = dataclasses.replace(lm_full, attention_impl="flash")
+    lm = build_model(lm_cfg)
+    master = lm.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)  # float32
+    served = lm.serving_params(master)  # cast once to bfloat16 for serving
+    tgen.manual_seed(5)
+    prompt = torch.randint(0, lm_cfg.vocab, (LM_BATCH, LM_PROMPT), generator=tgen, device=dev)
+    max_len = LM_PROMPT + LM_STEPS
+    vocab = lm_cfg.vocab
+
+    def nbytes(params):
+        return sum(p.numel() * p.element_size() for p in params.parameters())
+
+    def serve(model, params, forced=None):
+        """make_cache → prefill → LM_STEPS decode steps, greedy unless ``forced``
+        holds the tokens.  Returns the logits (prefill first), the tokens, the
+        prefill and decode seconds (host clock, synchronized) and the launch
+        counts of each phase."""
+        cache = model.make_cache(LM_BATCH, max_len, device=dev)
+        torch.cuda.synchronize()
+        codegen_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre = dict(codegen_cuda.launch_counts())
+        codegen_cuda.reset_launch_counts()
+        outs, toks = [logits], []
+        t2 = time.perf_counter()
+        for i in range(LM_STEPS):
+            tok = logits.argmax(dim=-1, keepdim=True) if forced is None else forced[i]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, {"tokens": tok}, cache)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        dec = dict(codegen_cuda.launch_counts())
+        if int(cache["pos"]) != max_len:
+            raise AssertionError(f"serve: cache position {int(cache['pos'])}, expected {max_len}")
+        return outs, toks, t1 - t0, t3 - t2, pre, dec
+
+    serve(lm, served)  # warm-up: cuBLAS handles and heuristics, the allocator
+    outs_f, toks_f, prefill_s, decode_s, pre_launch, dec_launch = serve(lm, served)
+    lm_launches = pre_launch.get(flash_ops.KERNEL.key, 0)
+    if lm_launches != lm_cfg.n_layers or sum(pre_launch.values()) != lm_launches:
+        raise AssertionError(f"LM prefill: launches {pre_launch}, expected {lm_cfg.n_layers} of flash_fwd only")
+    if sum(dec_launch.values()) != 0:
+        raise AssertionError(f"LM decode: launches {dec_launch}, expected none (decode attends with naive)")
+    cache_gb = 2 * lm_cfg.n_layers * LM_BATCH * max_len * lm_cfg.n_kv_heads * lm_hd * 2 / 1e9
+    log(f"path lm_serve: {LM_ARCH} ({lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
+        f"head_dim {lm_hd}) bfloat16, attention_impl=flash, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_STEPS} greedy decode steps; launches: prefill {pre_launch.get(flash_ops.KERNEL.key, 0)} flash_fwd, "
+        f"decode {sum(dec_launch.values())}")
+    log(f"lm_serve: prefill {prefill_s * 1e3:.1f} ms; decode {decode_s / LM_STEPS * 1e3:.2f} ms per step, "
+        f"{LM_BATCH * LM_STEPS / decode_s:.1f} tokens/s; weights {nbytes(master) / 1e9:.2f} GB float32 + "
+        f"{nbytes(served) / 1e9:.2f} GB bfloat16 serving copy; KV cache {cache_gb:.2f} GB bfloat16 "
+        f"(host clock, synchronized) -- {card}")
+    for i, lg in enumerate(outs_f):
+        if lg.shape != (LM_BATCH, lm_cfg.padded_vocab) or not torch.isfinite(lg[:, :vocab]).all():
+            raise AssertionError(f"LM logits {i}: shape {tuple(lg.shape)} or non-finite values")
+    # the same run through the plain chunked attention, teacher-forced with the flash run's tokens
+    chunked = build_model(dataclasses.replace(lm_cfg, attention_impl="chunked"))
+    outs_c, _, chunked_prefill_s, chunked_decode_s, _, _ = serve(chunked, served, forced=toks_f)
+    worst = 0.0
+    for i, (a_, b_) in enumerate(zip(outs_f, outs_c)):
+        a_, b_ = a_[:, :vocab], b_[:, :vocab]
+        rel = float((a_ - b_).abs().max()) / float(b_.abs().max())
+        worst = max(worst, rel)
+        if not rel <= LM_BF16_REL:
+            raise AssertionError(f"LM bfloat16 step {i}: flash vs chunked max |diff| = {rel:.3e} of max |logit|")
+    log(f"lm_serve bfloat16: flash vs chunked over prefill + {LM_STEPS} steps, max |diff| {worst:.3e} of "
+        f"max |logit| (limit {LM_BF16_REL:g}); chunked prefill {chunked_prefill_s * 1e3:.1f} ms, decode "
+        f"{chunked_decode_s / LM_STEPS * 1e3:.2f} ms per step")
+    del outs_c, served
+    # float32: the same comparison at the reference's smoke-test tolerance
+    lm32 = build_model(dataclasses.replace(lm_cfg, dtype="float32"))
+    chunked32 = build_model(dataclasses.replace(lm_cfg, dtype="float32", attention_impl="chunked"))
+    outs32, toks32, prefill32_s, _, pre32, _ = serve(lm32, master)
+    if pre32.get(flash_ops.KERNEL.key, 0) != lm_cfg.n_layers:
+        raise AssertionError(f"LM float32 prefill: launches {pre32}")
+    outs32c, _, _, _, _, _ = serve(chunked32, master, forced=toks32)
+    worst32 = 0.0
+    for i, (a_, b_) in enumerate(zip(outs32, outs32c)):
+        a_, b_ = a_[:, :vocab], b_[:, :vocab]
+        worst32 = max(worst32, float((a_ - b_).abs().max()))
+        if not (torch.isfinite(a_).all() and torch.allclose(a_, b_, rtol=2e-2, atol=2e-3)):
+            raise AssertionError(f"LM float32 step {i}: flash vs chunked differ by {worst32:.3e}")
+    log(f"lm_serve float32: flash vs chunked over prefill + {LM_STEPS} steps, max abs diff {worst32:.3e} "
+        f"(rtol 2e-2, atol 2e-3); flash prefill {prefill32_s * 1e3:.1f} ms")
+    del outs32, outs32c, master
+
+    # path D: ops.rglru_scan as a user calls it
+    a_rg, x_rg, h_rg = rglru_inputs("float32", 21)
+    torch.cuda.synchronize()
+    codegen_cuda.reset_launch_counts()
+    y_rg = rglru_ops.rglru_scan(a_rg, x_rg, h_rg)
+    torch.cuda.synchronize()
+    rglru_launches = rglru_ops.KERNEL.launches
+    if rglru_launches != 1 or not torch.isfinite(y_rg).all():
+        raise AssertionError(f"rglru entry point: launches {rglru_launches}")
+    only_these_ran("rglru entry point", {"rglru_scan": rglru_launches})
+    log(f"path rglru: ops.rglru_scan at {RGLRU_SHAPE} float32, launches {rglru_launches}")
 
     # ---------------------------------------------------------------- 5. times
     def bound(st, domain):
@@ -440,6 +641,59 @@ def main() -> int:
     vadv_entry = cuda_ms(lambda: vadv_ops.vadv(a, b, c, d), iters=20)
     log(f"time entry points {DOMAIN} float64: ops.hdiff {hdiff_entry:.4f} ms, ops.vadv {vadv_entry:.4f} ms "
         f"(CUDA events, each call end to end) -- {card}")
+    # flash attention at the LM's prefill shape (bfloat16, causal), arguments prepared once
+    shape_q = (LM_BATCH, LM_PROMPT, lm_full.n_heads, lm_hd)
+    shape_kv = (LM_BATCH, LM_PROMPT, lm_full.n_kv_heads, lm_hd)
+    q, k, v = normal(shape_q, "bfloat16", 31), normal(shape_kv, "bfloat16", 32), normal(shape_kv, "bfloat16", 33)
+    launch = flash_ops.prepare(q, k, v, causal=True)
+    flash_ms = cuda_ms(launch, iters=20)
+    flash_plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's (B, H, S, Dh)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    flash_lib_ms = cuda_ms(sdpa, iters=20)
+    lib_diff = float((sdpa().transpose(1, 2).float() - launch().float()).abs().max())
+    if not lib_diff <= FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash: scaled_dot_product_attention computes another function ({lib_diff:.3e})")
+    pairs = LM_BATCH * lm_full.n_heads * LM_PROMPT * (LM_PROMPT + 1) // 2  # causal (q, k) pairs
+    fl_flops = 4 * lm_hd * pairs
+    fl_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read once, o written once
+    t_ops, t_bytes = fl_flops / PEAK_BF16_FLOPS, fl_bytes / HBM_BYTES_PER_S
+    flash_bound = max(t_ops, t_bytes) * 1e3
+    flash_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"time flash_attention {shape_q} bfloat16 causal: kernel {flash_ms:.4f} ms, plain torch "
+        f"{flash_plain_ms:.4f} ms, library {flash_lib_ms:.4f} ms (scaled_dot_product_attention, max abs diff "
+        f"from the kernel {lib_diff:.3e}), bound {flash_bound:.4f} ms ({flash_by}: {fl_flops / 1e9:.1f} GFLOP at "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {fl_bytes / 1e6:.1f} MB) -- {card}")
+    log(f"lm_serve: flash kernel {lm_cfg.n_layers} x {flash_ms:.4f} ms = {lm_cfg.n_layers * flash_ms:.1f} ms, "
+        f"{100 * lm_cfg.n_layers * flash_ms / (prefill_s * 1e3):.1f}% of the {prefill_s * 1e3:.1f} ms prefill")
+    report.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:153", "launches": lm_launches,
+        "max_abs_err": flash_err[(f"{LM_ARCH} prefill", "bfloat16")], "ms": flash_ms, "plain_ms": flash_plain_ms,
+        "bound_ms": flash_bound, "bound_by": flash_by, "library_ms": flash_lib_ms,
+    })
+    del q, k, v, qt, kt, vt, launch
+    # the RG-LRU scan at RecurrentGemma-2B's width, float32, arguments prepared once
+    launch = rglru_ops.prepare(a_rg, x_rg, h_rg)
+    rglru_ms = cuda_ms(launch, iters=20)
+    rglru_plain_ms = cuda_ms(lambda: rglru_scan_ref(a_rg, x_rg, h_rg), iters=2, warmup=1)
+    rg_bytes = 4 * (3 * a_rg.numel() + h_rg.numel())  # a, b and h0 read once, y written once
+    rg_flops = 2 * a_rg.numel()
+    t_ops, t_bytes = rg_flops / PEAK_FLOPS["float32"], rg_bytes / HBM_BYTES_PER_S
+    rglru_bound = max(t_ops, t_bytes) * 1e3
+    rglru_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"time rglru_scan {RGLRU_SHAPE} float32: kernel {rglru_ms:.4f} ms, plain torch {rglru_plain_ms:.4f} ms, "
+        f"no single PyTorch call, bound {rglru_bound:.4f} ms ({rglru_by}: {rg_bytes / 1e6:.1f} MB) -- {card}")
+    report.append({
+        "name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:62", "launches": rglru_launches,
+        "max_abs_err": rglru_err["float32"], "ms": rglru_ms, "plain_ms": rglru_plain_ms,
+        "bound_ms": rglru_bound, "bound_by": rglru_by, "library_ms": None,
+    })
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,8 +79,14 @@ _CTYPE = {
     "bool": "bool",
 }
 
-# every live CudaKernel; the module-level launch counts are read from them
-_KERNELS: weakref.WeakSet[CudaKernel] = weakref.WeakSet()
+# every live kernel (each CudaKernel, and the hand-written kernels'
+# ``kernels._build.HandKernel``s); the module-level launch counts are read from them
+_KERNELS: weakref.WeakSet = weakref.WeakSet()
+
+
+def register_kernel(kernel) -> None:
+    """Let ``launch_counts()`` see a kernel with a ``key`` and a ``launches`` count."""
+    _KERNELS.add(kernel)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -893,6 +899,55 @@ def nvcc_path() -> str:
     raise RuntimeError("cuda backend: nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+class NvccLibrary:
+    """A CUDA source compiled by ``nvcc`` (``NVCC_FLAGS``: sm_90a, a shared
+    library with a plain C interface) into ``lib_path``.
+
+    ``start_build`` runs ``nvcc`` in the background, so that many libraries
+    build in parallel; ``load`` builds on first use if nobody did and opens
+    the library with ``ctypes``.  ``source``, when given, is written to
+    ``src_path`` first (a generated kernel); else ``src_path`` is the file.
+    """
+
+    def __init__(self, src_path: Path, lib_path: Path, source: Optional[str] = None):
+        self.src_path, self.lib_path, self.source = src_path, lib_path, source
+        self._proc: Optional[subprocess.Popen] = None
+        self._tmp: Optional[Path] = None
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def start_build(self) -> None:
+        """Start compiling unless the library is built or being built."""
+        with _build_lock:
+            if self._proc is not None or self._lib is not None or self.lib_path.exists():
+                return
+            tag = f"{os.getpid()}.{threading.get_ident()}"
+            if self.source is not None:
+                src_tmp = self.src_path.with_name(f"{self.src_path.name}.{tag}.tmp")
+                src_tmp.write_text(self.source)
+                os.replace(src_tmp, self.src_path)
+            self._tmp = self.lib_path.with_name(f"{self.lib_path.name}.{tag}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.src_path)]
+            self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish_build(self) -> None:
+        """Wait for ``nvcc`` and raise with its output if it failed."""
+        with _build_lock:
+            proc, self._proc = self._proc, None
+        if proc is None:
+            return
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.src_path}:\n{out}")
+        os.replace(self._tmp, self.lib_path)
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self.start_build()
+            self.finish_build()
+            self._lib = ctypes.CDLL(str(self.lib_path))
+        return self._lib
+
+
 class CudaKernel:
     """The compiled kernel of one ``cuda`` stencil module.
 
@@ -907,46 +962,20 @@ class CudaKernel:
         self.key = key
         # the library is named by its source's hash: a stale build is never loaded
         digest = hashlib.sha256(module.CUDA_SOURCE.encode()).hexdigest()[:12]
-        self.src_path = cache / f"{key}.{digest}.cu"
-        self.lib_path = cache / f"{key}.{digest}.so"
+        self.library = NvccLibrary(cache / f"{key}.{digest}.cu", cache / f"{key}.{digest}.so", module.CUDA_SOURCE)
         self.launches = 0
-        _KERNELS.add(self)
-        self._proc: Optional[subprocess.Popen] = None
-        self._tmp: Optional[Path] = None
+        register_kernel(self)
         self._fn = None
 
-    # -- build ------------------------------------------------------------------
-
     def start_build(self) -> None:
-        """Start compiling unless the library is built or being built."""
-        with _build_lock:
-            if self._proc is not None or self._fn is not None or self.lib_path.exists():
-                return
-            tag = f"{os.getpid()}.{threading.get_ident()}"
-            src_tmp = self.src_path.with_name(f"{self.src_path.name}.{tag}.tmp")
-            src_tmp.write_text(self.module.CUDA_SOURCE)
-            os.replace(src_tmp, self.src_path)
-            self._tmp = self.lib_path.with_name(f"{self.lib_path.name}.{tag}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.src_path)]
-            self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.library.start_build()
 
     def finish_build(self) -> None:
-        """Wait for ``nvcc`` and raise with its output if it failed."""
-        with _build_lock:
-            proc, self._proc = self._proc, None
-        if proc is None:
-            return
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"cuda backend: nvcc failed for {self.src_path}:\n{out}")
-        os.replace(self._tmp, self.lib_path)
+        self.library.finish_build()
 
     def _load(self):
         if self._fn is None:
-            self.start_build()
-            self.finish_build()
-            lib = ctypes.CDLL(str(self.lib_path))
-            fn = getattr(lib, self.module.KERNEL)
+            fn = getattr(self.library.load(), self.module.KERNEL)
             argtypes: List[Any] = []
             for _name, axes, *_ in self.module.FIELDS:
                 argtypes.append(ctypes.c_void_p)
@@ -958,7 +987,7 @@ class CudaKernel:
             argtypes.append(ctypes.c_void_p)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
+            self._fn = fn
         return self._fn
 
     # -- launch -------------------------------------------------------------------

@@ -1,0 +1,68 @@
+"""The RG-LRU scan h_t = a_t · h_{t−1} + b_t over (B, S, D).
+
+On CUDA tensors ``rglru_scan`` launches the hand-written Hopper kernel
+``csrc/rglru_scan.cu``, the counterpart of the reference's Pallas TPU kernel
+(``repro/kernels/rglru``); there is no padding, the kernel masks its ragged
+edge.  On CPU tensors it runs the plain version (``ref.rglru_scan_ref``).
+Anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.kernels._build import HandKernel
+
+from .ref import rglru_scan_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+KERNEL = HandKernel(
+    "rglru_scan",
+    Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu",
+    "rglru_scan",
+    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a (decay), b (input term): (B, S, D); h0: (B, D) or None (zeros).
+    Returns y (B, S, D) in ``a``'s dtype; the state is carried in float32."""
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    return prepare(a, b, h0)()
+
+
+def prepare(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> Callable[[], torch.Tensor]:
+    """Check CUDA arguments, allocate the output and return a callable that
+    launches the kernel on them (each call one launch) and returns the output."""
+    if not a.is_cuda:
+        raise TypeError(f"rglru_scan: tensors on {a.device} are not supported (cpu or cuda)")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru_scan: a and b must be (B, S, D) of one shape, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or b.device != a.device:
+        raise TypeError(f"rglru_scan: a and b must share a dtype in {tuple(_DTYPES)} and a device; got "
+                        f"{a.dtype} on {a.device}, {b.dtype} on {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru_scan: a and b must be contiguous")
+    n, s, d = a.shape
+    if h0 is not None:
+        if h0.shape != (n, d) or h0.device != a.device:
+            raise ValueError(f"rglru_scan: h0 must be ({n}, {d}) on {a.device}, got {tuple(h0.shape)} on {h0.device}")
+        h0 = h0.to(torch.float32).contiguous()
+    y = torch.empty_like(a)
+    if a.numel() == 0:
+        return lambda: y
+    args = (_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), n, s, d, torch.cuda.current_stream(a.device).cuda_stream)
+
+    def launch() -> torch.Tensor:
+        KERNEL.launch(*args)
+        return y
+
+    launch.keep = (a, b, h0)  # the inputs live as long as the launcher
+    return launch

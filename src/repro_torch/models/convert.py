@@ -1,0 +1,67 @@
+"""Carry the reference package's weights and KV caches into the port.
+
+The reference holds parameters as a nested dict of arrays, each layer stack
+stacked along a leading axis (``decoder/blocks``, ``decoder/groups``,
+``encoder/blocks``); the port holds a :class:`ParamTree` with one subtree per
+layer.  Pass ``np.asarray`` of every leaf (``jax.tree_util.tree_map(np.asarray,
+params)``): this module imports neither JAX nor the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .layers import ParamTree
+
+# the reference's stacked subtrees (``transformer.stack_specs``)
+_STACKED = frozenset({"blocks", "groups"})
+
+
+def to_tensor(a, device="cpu") -> torch.Tensor:
+    """A numpy array (bfloat16 included, as JAX hands it out) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _leaf(tree: Any):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _unstack(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _convert(tree: Any, device) -> Any:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and k in _STACKED:
+            n = np.asarray(_leaf(v)).shape[0]
+            out[k] = [_convert(_unstack(v, i), device) for i in range(n)]
+        elif isinstance(v, dict):
+            out[k] = _convert(v, device)
+        else:
+            out[k] = to_tensor(v, device)
+    return out
+
+
+def params_from_reference(tree: Dict[str, Any], device="cpu") -> ParamTree:
+    """The reference's parameter tree (numpy leaves) as the port's ParamTree."""
+    return ParamTree(_convert(tree, device))
+
+
+def cache_from_reference(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The reference's dense KV cache ({'layers': {'k', 'v': (L, B, Smax, Kh,
+    Dh)}, 'pos': ()}, numpy leaves) as the port's cache."""
+    return {
+        "layers": {n: to_tensor(tree["layers"][n], device) for n in ("k", "v")},
+        "pos": torch.tensor(int(np.asarray(tree["pos"])), dtype=torch.int32, device=device),
+    }
