@@ -7,16 +7,22 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: every stencil below is generated and compiled with nvcc (sm_90a),
-   with the hand-written flash-attention and RG-LRU sources, all at once, into
+   with the hand-written flash-attention (float32: ``flash_fwd.cu``;
+   bfloat16 on the tensor cores: ``flash_fwd_sm90.cu``, whose ``-Xptxas -v``
+   registers and spills are printed) and RG-LRU sources, all at once, into
    ``.gt_cache_torch/``;
 3. kernel vs plain: each generated kernel against the plain torch backend on
    the same CUDA inputs, float64 and float32, at 256 x 256 x 80 and on a
-   ragged domain; the hdiff and vadv kernels also against their hand-written
-   oracles (``kernels/*/ref.py``), vadv's residual, and the stencil corpus;
-   the flash-attention kernel against its plain version, float32 (2e-6) and
+   ragged domain, on fields in the card layout (``storage``) and in C order;
+   the hdiff and vadv kernels also against their hand-written oracles
+   (``kernels/*/ref.py``), vadv's residual, and the stencil corpus; the
+   flash-attention kernels against their plain version, float32 (2e-6) and
    bfloat16 (2e-2), on the reference's kernel-test cases and at the widths of
-   phi3-mini-3.8b, stablelm-12b and recurrentgemma-2b; the RG-LRU kernel at
-   RecurrentGemma-2B's width (4, 4096, 2560), float32 and bfloat16;
+   phi3-mini-3.8b, stablelm-12b and recurrentgemma-2b, and the bfloat16
+   kernel on every head dim, MHA, GQA and MQA, ragged lengths, non-causal,
+   window and cap, strided views, decode rows and a row with no key; the
+   RG-LRU kernel at RecurrentGemma-2B's width (4, 4096, 2560), float32 and
+   bfloat16;
 4. the paths, each with every launch count zeroed just before it and read
    just after: (A) the kernel entry points (``ops.hdiff``, ``ops.vadv``);
    (B) the eager climate step advect → euler → diffuse → vadv_system → vadv
@@ -24,15 +30,18 @@ Phases, in order; any failure exits non-zero before the result line:
    the same step on the torch backend and, on a small domain, the numpy
    backend; (C) LM serving of phi3-mini-3.8b at full width and depth with
    random weights: ``make_cache(4, 2080)``, ``prefill`` of a 4 x 2048 prompt
-   through the flash kernel (32 launches), 32 greedy ``decode_step``s (no
-   launch), held against the same run through the plain ``chunked``
-   attention in bfloat16 and in float32; (D) ``ops.rglru_scan`` as a user
-   calls it;
+   through the bfloat16 tensor-core flash kernel (32 launches, none of the
+   float32 kernel), 32 greedy ``decode_step``s (no launch), held against the
+   same run through the plain ``chunked`` attention in bfloat16 and in
+   float32 (the float32 prefill: 32 launches of the float32 kernel); (D)
+   ``ops.rglru_scan`` as a user calls it;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
    ``scaled_dot_product_attention``), and the least time the card could take
-   (its bound); ``ops.hdiff`` and ``ops.vadv`` also end to end.
+   (its bound); the stencils on card-layout fields (what path B runs), once
+   more in C order, and once more without the ``cp.async`` prefetch of
+   staged planes; ``ops.hdiff`` and ``ops.vadv`` also end to end.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -96,9 +105,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.core import codegen_cuda, gtscript, ir, ir_json, storage
+    from repro_torch.core import caching, codegen_cuda, gtscript, ir, ir_json, storage
     from repro_torch.core.gtscript import GTScriptSemanticError
-    from repro_torch.core.stencil import build_from_definition
+    from repro_torch.core.stencil import StencilObject, build_from_definition
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.hdiff import ops as hdiff_ops
@@ -145,6 +154,23 @@ def main() -> int:
     }
     for name, defs in climate_defs.items():
         S[f"climate.{name}"] = {be: build[be](defs) for be in ("cuda", "torch")}
+
+    def without_prefetch(st):
+        """``st`` with its staged planes loaded plainly, without the cp.async
+        prefetch of the next plane: the kernel the prefetch is timed against."""
+        fp = st.fingerprint + "_noprefetch"
+        module = caching.load_generated_module(st.name, fp, codegen_cuda.generate_cuda_module_source(
+            st.implementation_ir, st.kernel.module.BLOCK, async_staging=False))
+        return StencilObject(st.name, "cuda", st.definition_ir, st.implementation_ir, module.CUDA_SOURCE,
+                             st._run, fingerprint=fp, module=module,
+                             kernel=codegen_cuda.CudaKernel(module, caching.module_key(st.name, fp),
+                                                            caching.cache_dir()))
+
+    # the timed kernels that stage planes, without the cp.async prefetch, timed beside
+    # them; a kernel with no staged plane is the same kernel either way
+    S_sync = {key: without_prefetch(S[key]["cuda"])
+              for key in ["hdiff/float64", "vadv/float64"] + [f"climate.{n}" for n in climate_defs]
+              if S[key]["cuda"].kernel.module.SCHEDULE["async_staging"]}
     corpus = {}
     rejected, expected_rejected = [], []
     for path in sorted((ROOT / "tests" / "corpus").glob("prog_*.json")):
@@ -164,26 +190,37 @@ def main() -> int:
     if rejected != expected_rejected:
         raise AssertionError(f"corpus: cuda rejected {rejected}, the reference's limit rejects "
                              f"{expected_rejected}")
-    # the hand-written kernels first: the flash source takes longest
-    kernels = [flash_ops.KERNEL, rglru_ops.KERNEL] + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
+    # the hand-written kernels first: the flash sources take longest
+    hand = [flash_ops.KERNEL_BF16, flash_ops.KERNEL, rglru_ops.KERNEL]
+    kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
+    kernels += [s.kernel for s in S_sync.values()]
     for k in kernels:
         k.start_build()
     for k in kernels:
         k.finish_build()
-    log(f"build: {len(S) + len(corpus)} stencils and 2 hand-written kernels, {len({k.key for k in kernels})} CUDA sources compiled "
-        f"for sm_90a in {time.perf_counter() - t0:.1f} s (corpus programs rejected by the written-API "
-        f"limit: {rejected})")
+    log(f"build: {len(S) + len(corpus) + len(S_sync)} stencils and {len(hand)} hand-written kernels, "
+        f"{len({k.key for k in kernels})} CUDA sources compiled for sm_90a in {time.perf_counter() - t0:.1f} s "
+        f"(corpus programs rejected by the written-API limit: {rejected})")
+    ptxas = [ln.strip() for ln in flash_ops.KERNEL_BF16.library.log.splitlines()
+             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+    for ln in ptxas or ["(built in an earlier run: no ptxas output)"]:
+        log(f"ptxas {flash_ops.KERNEL_BF16.source.name}: {ln}")
 
     # ---------------------------------------------------------------- 3. kernel vs plain
     rng = np.random.default_rng(2024)
 
-    def field_arrays(st, domain, dtype):
+    def field_arrays(st, domain, dtype, layout="card"):
+        """Random inputs in the card layout (as ``storage`` makes the cuda
+        backend's fields: J contiguous, K slowest) or in C order."""
         shape = (domain[0] + 2 * H, domain[1] + 2 * H, domain[2])
         out = {}
         for n, info in st.field_info.items():
             if info.axes != ("I", "J", "K"):
                 raise AssertionError(f"{st.name}: smoke inputs are IJK fields only")
-            out[n] = torch.from_numpy(rng.normal(size=shape)).to(dev, getattr(torch, dtype))
+            x = torch.from_numpy(rng.normal(size=shape)).to(dev, getattr(torch, dtype))
+            out[n] = storage.card_tensor(shape, x.dtype, dev).copy_(x) if layout == "card" else x
+            if storage.is_card_layout(out[n]) != (layout == "card"):
+                raise AssertionError(f"{st.name}: field {n!r} is not in the {layout} layout")
         return out
 
     def diagonally_dominant(fields):
@@ -193,7 +230,7 @@ def main() -> int:
         fields["c"] *= 0.1
         fields["b"] = fields["b"].abs() + 2.0
 
-    def compare(name, pair, fields, scalars, domain, origin, dtype):
+    def compare(name, pair, fields, scalars, domain, origin, dtype, layout):
         rtol, atol = TOL[dtype]
         outs = {}
         for be in ("cuda", "torch"):
@@ -209,7 +246,7 @@ def main() -> int:
             err = max(err, float((a - b).abs().max()))
             if not torch.allclose(a, b, rtol=rtol, atol=atol):
                 raise AssertionError(f"{name}: kernel differs from plain on {n!r} by {err:.3e}")
-        log(f"check {name:28s} {str(domain):16s} max_abs_err {err:.3e} (rtol {rtol:g}, atol {atol:g}) "
+        log(f"check {name:28s} {str(domain):16s} {layout:7s} max_abs_err {err:.3e} (rtol {rtol:g}, atol {atol:g}) "
             f"launches {pair['cuda'].launches}")
         return err
 
@@ -224,12 +261,21 @@ def main() -> int:
     for key, pair in S.items():
         name, dtype = (key.split("/") + ["float64"])[:2]
         for domain in (DOMAIN, RAGGED):
-            fields = field_arrays(pair["cuda"], domain, dtype)
-            if name in ("vadv", "climate.vadv"):
-                diagonally_dominant(fields)
-            e = compare(key, pair, fields, scal[name], domain, (H, H, 0), dtype)
-            if domain == DOMAIN and dtype == "float64":
-                err_at_full[name] = e
+            for layout in ("card", "c_order"):
+                fields = field_arrays(pair["cuda"], domain, dtype, layout)
+                if name in ("vadv", "climate.vadv"):
+                    diagonally_dominant(fields)
+                e = compare(key, pair, fields, scal[name], domain, (H, H, 0), dtype, layout)
+                if domain == DOMAIN and dtype == "float64" and layout == "card":
+                    err_at_full[name] = e
+    # the kernels without the cp.async prefetch give the same answers
+    for key, st in S_sync.items():
+        name = key.split("/")[0]
+        fields = field_arrays(st, DOMAIN, "float64")
+        if name in ("vadv", "climate.vadv"):
+            diagonally_dominant(fields)
+        compare(key + " (no prefetch)", {"cuda": st, "torch": S[key]["torch"]}, fields, scal[name], DOMAIN,
+                (H, H, 0), "float64", "card")
 
     # the kernel entry points against their hand-written oracles
     x = torch.from_numpy(rng.normal(size=(DOMAIN[0] + 6, DOMAIN[1] + 6, DOMAIN[2]))).to(dev)
@@ -274,20 +320,30 @@ def main() -> int:
         tgen.manual_seed(seed)
         return torch.randn(shape, generator=tgen, device=dev, dtype=torch.float32).to(getattr(torch, dtype))
 
-    def check_flash(label, dtype, q_shape, kv_shape, **kw):
-        """The kernel against the plain version on the same inputs: in float64
-        for float32 inputs (the float32 plain version's own rounding of the
-        scores is of the order of the 2e-6 tolerance at these lengths), in
-        float32 for bfloat16 inputs, as the reference's kernel tests."""
-        q, k, v = normal(q_shape, dtype, 1), normal(kv_shape, dtype, 2), normal(kv_shape, dtype, 3)
+    flash_route = {"float32": (flash_ops.KERNEL, flash_ops.KERNEL_BF16),
+                   "bfloat16": (flash_ops.KERNEL_BF16, flash_ops.KERNEL)}
+
+    def check_flash(label, dtype, q_shape, kv_shape, qkv=None, **kw):
+        """The kernel of the dtype's route against the plain version on the
+        same inputs: in float64 for float32 inputs (the float32 plain
+        version's own rounding of the scores is of the order of the 2e-6
+        tolerance at these lengths), in float32 for bfloat16 inputs, as the
+        reference's kernel tests.  ``qkv`` replaces the random inputs."""
+        if qkv is None:
+            qkv = normal(q_shape, dtype, 1), normal(kv_shape, dtype, 2), normal(kv_shape, dtype, 3)
+        q, k, v = qkv
+        route, other = flash_route[dtype]
+        before, before_other = route.launches, other.launches
         got = flash_ops.flash_attention(q, k, v, **kw)
         work = (lambda x: x.double()) if dtype == "float32" else (lambda x: x)
         ref = flash_attention_ref(work(q), work(k), work(v), **kw)
         torch.cuda.synchronize()
+        if route.launches != before + 1 or other.launches != before_other:
+            raise AssertionError(f"flash {label} {dtype}: not one launch of {route.key} alone")
         tol = FLASH_TOL[dtype]
         err = float((got.double() - ref.double()).abs().max())
         opts = {n: (int(x) if isinstance(x, torch.Tensor) else x) for n, x in kw.items()}
-        log(f"check flash {label:30s} {dtype:8s} q {q_shape} kv {kv_shape} {opts} max_abs_err {err:.3e} "
+        log(f"check flash {label:30s} {dtype:8s} q {tuple(q.shape)} kv {tuple(k.shape)} {opts} max_abs_err {err:.3e} "
             f"(rtol {tol:g}, atol {tol:g}; plain version in {'float64' if dtype == 'float32' else 'float32'})")
         if not (torch.isfinite(got).all() and torch.allclose(got.double(), ref.double(), rtol=tol, atol=tol)):
             raise AssertionError(f"flash {label} {dtype}: the kernel differs from the plain version by {err:.3e}")
@@ -316,6 +372,30 @@ def main() -> int:
                     kv_len=t + 1)
         check_flash(f"decode row t={t} (device offsets)", "float32", (1, 1, 4, 32), (1, 32, 2, 32), causal=True,
                     q_offset=pos, kv_len=pos + 1)
+    # the bfloat16 tensor-core kernel: every head dim, MHA, GQA and MQA, 300
+    # rows (not a multiple of the 128-row q blocks nor of the 64/128-key tiles)
+    for dh_ in flash_ops.HEAD_DIMS:
+        for label, h_, kh_ in (("MHA", 4, 4), ("GQA", 8, 2), ("MQA", 6, 1)):
+            check_flash(f"Dh {dh_} {label}", "bfloat16", (2, 300, h_, dh_), (2, 300, kh_, dh_), causal=True)
+    qkv = normal((2, 200, 12, 96), "bfloat16", 4)
+    views = (qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:])  # strided views, head_dim contiguous
+    for label, kw in (("non-causal, strided views", {"causal": False}),
+                      ("window + cap, strided views", {"causal": True, "window": 37, "cap": 20.0}),
+                      ("non-causal window, strided views", {"causal": False, "window": 50})):
+        check_flash(label, "bfloat16", None, None, qkv=views, **kw)
+    check_flash("77 queries, 200 keys", "bfloat16", None, None, qkv=(views[0][:, :77],) + views[1:], causal=False)
+    dec = normal((2, 1, 8, 96), "bfloat16", 5), normal((2, 300, 2, 96), "bfloat16", 6), normal((2, 300, 2, 96), "bfloat16", 7)
+    for t in (0, 13, 127, 128, 299):
+        pos = torch.tensor(t, dtype=torch.int32, device=dev)
+        check_flash(f"decode row t={t}", "bfloat16", None, None, qkv=dec, causal=True, q_offset=t, kv_len=t + 1)
+        check_flash(f"decode row t={t} (device offsets)", "bfloat16", None, None, qkv=dec, causal=True,
+                    q_offset=pos, kv_len=pos + 1)
+    for kw in ({"causal": False, "kv_len": 0}, {"causal": True, "kv_len": torch.tensor(0, dtype=torch.int32, device=dev)}):
+        o = flash_ops.flash_attention(normal((1, 130, 4, 96), "bfloat16", 8), dec[1][:1], dec[2][:1], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, torch.zeros_like(o)):
+            raise AssertionError(f"flash bfloat16: rows with no key are not 0 ({kw})")
+    log("check flash bfloat16 rows with no key (kv_len 0, host and device): 0 exactly")
 
     def rglru_inputs(dtype, seed):
         n, _, d = RGLRU_SHAPE
@@ -340,6 +420,10 @@ def main() -> int:
     log("check rglru_scan zero decay: y == b exactly")
 
     # ---------------------------------------------------------------- 4. the paths
+    def ran(counts):
+        """The kernels that were launched, with their counts."""
+        return {k: n for k, n in counts.items() if n}
+
     def only_these_ran(path_name, launches):
         """The module-level counts (every live kernel) hold no launch beyond
         the path's own kernels."""
@@ -476,16 +560,17 @@ def main() -> int:
 
     serve(lm, served)  # warm-up: cuBLAS handles and heuristics, the allocator
     outs_f, toks_f, prefill_s, decode_s, pre_launch, dec_launch = serve(lm, served)
-    lm_launches = pre_launch.get(flash_ops.KERNEL.key, 0)
+    # bfloat16 prefill: the tensor-core kernel on every layer, and no other kernel
+    lm_launches = pre_launch.get(flash_ops.KERNEL_BF16.key, 0)
     if lm_launches != lm_cfg.n_layers or sum(pre_launch.values()) != lm_launches:
-        raise AssertionError(f"LM prefill: launches {pre_launch}, expected {lm_cfg.n_layers} of flash_fwd only")
+        raise AssertionError(f"LM prefill: launches {ran(pre_launch)}, expected {lm_cfg.n_layers} of "
+                             f"{flash_ops.KERNEL_BF16.key} only")
     if sum(dec_launch.values()) != 0:
         raise AssertionError(f"LM decode: launches {dec_launch}, expected none (decode attends with naive)")
     cache_gb = 2 * lm_cfg.n_layers * LM_BATCH * max_len * lm_cfg.n_kv_heads * lm_hd * 2 / 1e9
     log(f"path lm_serve: {LM_ARCH} ({lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
         f"head_dim {lm_hd}) bfloat16, attention_impl=flash, batch {LM_BATCH}, prompt {LM_PROMPT}, "
-        f"{LM_STEPS} greedy decode steps; launches: prefill {pre_launch.get(flash_ops.KERNEL.key, 0)} flash_fwd, "
-        f"decode {sum(dec_launch.values())}")
+        f"{LM_STEPS} greedy decode steps; launches: prefill {ran(pre_launch)}, decode {sum(dec_launch.values())}")
     log(f"lm_serve: prefill {prefill_s * 1e3:.1f} ms; decode {decode_s / LM_STEPS * 1e3:.2f} ms per step, "
         f"{LM_BATCH * LM_STEPS / decode_s:.1f} tokens/s; weights {nbytes(master) / 1e9:.2f} GB float32 + "
         f"{nbytes(served) / 1e9:.2f} GB bfloat16 serving copy; KV cache {cache_gb:.2f} GB bfloat16 "
@@ -511,8 +596,10 @@ def main() -> int:
     lm32 = build_model(dataclasses.replace(lm_cfg, dtype="float32"))
     chunked32 = build_model(dataclasses.replace(lm_cfg, dtype="float32", attention_impl="chunked"))
     outs32, toks32, prefill32_s, _, pre32, _ = serve(lm32, master)
-    if pre32.get(flash_ops.KERNEL.key, 0) != lm_cfg.n_layers:
-        raise AssertionError(f"LM float32 prefill: launches {pre32}")
+    lm32_launches = pre32.get(flash_ops.KERNEL.key, 0)  # float32: the CUDA-core kernel on every layer
+    if lm32_launches != lm_cfg.n_layers or sum(pre32.values()) != lm32_launches:
+        raise AssertionError(f"LM float32 prefill: launches {ran(pre32)}, expected {lm_cfg.n_layers} of "
+                             f"{flash_ops.KERNEL.key} only")
     outs32c, _, _, _, _, _ = serve(chunked32, master, forced=toks32)
     worst32 = 0.0
     for i, (a_, b_) in enumerate(zip(outs32, outs32c)):
@@ -521,7 +608,7 @@ def main() -> int:
         if not (torch.isfinite(a_).all() and torch.allclose(a_, b_, rtol=2e-2, atol=2e-3)):
             raise AssertionError(f"LM float32 step {i}: flash vs chunked differ by {worst32:.3e}")
     log(f"lm_serve float32: flash vs chunked over prefill + {LM_STEPS} steps, max abs diff {worst32:.3e} "
-        f"(rtol 2e-2, atol 2e-3); flash prefill {prefill32_s * 1e3:.1f} ms")
+        f"(rtol 2e-2, atol 2e-3); flash prefill {prefill32_s * 1e3:.1f} ms, launches {ran(pre32)}")
     del outs32, outs32c, master
 
     # path D: ops.rglru_scan as a user calls it
@@ -573,21 +660,24 @@ def main() -> int:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
-    def timed(pair, fields, scalars_, domain):
-        launch = pair["cuda"].kernel.prepare(fields, scalars_, domain, {n: (H, H, 0) for n in fields})
+    def timed(st, fields, scalars_, domain):
+        """The kernel's ms a launch, arguments prepared once; its result is
+        left in the outputs, for the library check."""
+        launch = st.kernel.prepare(fields, scalars_, domain, {n: (H, H, 0) for n in fields})
         ms = cuda_ms(launch, iters=50)
-        plain = cuda_ms(lambda: pair["torch"](**fields, **scalars_, domain=domain, origin=(H, H, 0)), iters=5)
-        launch()  # leave the kernel's result in the outputs, for the library check
-        return ms, plain
+        launch()
+        return ms
 
     def library(name, fields, sc, domain):
         """One PyTorch call that computes the stencil, where there is one:
         (ms, max abs difference from the kernel's output), else None."""
         ni, nj, nk = domain
         inner = (slice(H, H + ni), slice(H, H + nj))
-        if name == "climate.euler":  # out = phi + dt * adv
-            out = torch.empty((ni, nj, nk), dtype=torch.float64, device=dev)
+        if name == "climate.euler":  # out = phi + dt * adv, in the inputs' layout
             phi, adv = fields["phi"][inner], fields["adv"][inner]
+            out = torch.empty_like(phi)
+            if storage.is_card_layout(out) != storage.is_card_layout(fields["phi"]):
+                raise AssertionError("euler yardstick: out is not in the inputs' layout")
 
             def fn():
                 return torch.add(phi, adv, alpha=sc["dt"], out=out)
@@ -614,19 +704,29 @@ def main() -> int:
     ]
     for name, key, replaces, n_launch in entries:
         pair = S[key]
-        fields = field_arrays(pair["cuda"], DOMAIN, "float64")
-        if "vadv" in key and "system" not in key:
-            diagonally_dominant(fields)
         sc = scal[key.split("/")[0]]
-        ms, plain_ms = timed(pair, fields, sc, DOMAIN)
+        by_layout = {}
+        for layout in ("c_order", "card"):  # card last: its outputs feed the library check
+            fields = field_arrays(pair["cuda"], DOMAIN, "float64", layout)
+            if "vadv" in key and "system" not in key:
+                diagonally_dominant(fields)
+            by_layout[layout] = timed(pair["cuda"], fields, sc, DOMAIN)
+        ms = by_layout["card"]  # what path B runs: storage fields in the card layout
+        # the same fields through the kernel without the cp.async prefetch of staged planes
+        ms_sync = timed(S_sync.get(key, pair["cuda"]), fields, sc, DOMAIN)
+        plain_ms = cuda_ms(lambda: pair["torch"](**fields, **sc, domain=DOMAIN, origin=(H, H, 0)), iters=5)
+        timed(pair["cuda"], fields, sc, DOMAIN)  # the kernel's result in the outputs again
         bound_ms, bound_by, nbytes, flops = bound(pair["cuda"], DOMAIN)
         lib = library(name, fields, sc, DOMAIN)
         lib_text = "no single PyTorch call"
         if lib is not None:
-            lib_text = f"library {lib[0]:.4f} ms (max abs diff from the kernel {lib[1]:.3e})"
+            lib_text = f"library {lib[0]:.4f} ms on the same layout (max abs diff from the kernel {lib[1]:.3e})"
             if not lib[1] <= 1e-12:
                 raise AssertionError(f"{name}: the library call computes another function ({lib[1]:.3e})")
-        log(f"time {name:20s} {DOMAIN} float64: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+        staged = pair["cuda"].kernel.module.SCHEDULE["async_staging"]
+        log(f"time {name:20s} {DOMAIN} float64: kernel {ms:.4f} ms on card-layout fields, "
+            f"{by_layout['c_order']:.4f} ms on C-order fields, {ms_sync:.4f} ms without the cp.async prefetch"
+            f"{'' if staged else ' (no staged plane: the same kernel)'}; plain torch {plain_ms:.4f} ms, "
             f"{lib_text}, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e6:.1f} Mflop) -- {card}")
         report.append({
@@ -634,13 +734,21 @@ def main() -> int:
             "replaces": replaces, "launches": n_launch,
             "max_abs_err": err_at_full[key.split("/")[0]], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib[0] if lib else None,
+            "ms_c_order": by_layout["c_order"], "ms_no_prefetch": ms_sync,
         })
     # the user-facing entry points, end to end: argument checks, hdiff's seeding
     # copy of its input, vadv's scratch, and the launch
-    hdiff_entry = cuda_ms(lambda: hdiff_ops.hdiff(x, 0.05), iters=20)
-    vadv_entry = cuda_ms(lambda: vadv_ops.vadv(a, b, c, d), iters=20)
-    log(f"time entry points {DOMAIN} float64: ops.hdiff {hdiff_entry:.4f} ms, ops.vadv {vadv_entry:.4f} ms "
-        f"(CUDA events, each call end to end) -- {card}")
+    def card_copy(t):
+        return storage.card_tensor(t.shape, t.dtype, dev).copy_(t)
+
+    entry = {}
+    for layout, put in (("card", card_copy), ("c_order", lambda t: t)):
+        xl, (al, bl, cl, dl) = put(x), (put(t) for t in (a, b, c, d))
+        entry[layout] = (cuda_ms(lambda: hdiff_ops.hdiff(xl, 0.05), iters=20),
+                         cuda_ms(lambda: vadv_ops.vadv(al, bl, cl, dl), iters=20))
+    log(f"time entry points {DOMAIN} float64 (CUDA events, each call end to end; outputs in the card layout): "
+        f"inputs in the card layout: ops.hdiff {entry['card'][0]:.4f} ms, ops.vadv {entry['card'][1]:.4f} ms; "
+        f"inputs in C order: ops.hdiff {entry['c_order'][0]:.4f} ms, ops.vadv {entry['c_order'][1]:.4f} ms -- {card}")
     # flash attention at the LM's prefill shape (bfloat16, causal), arguments prepared once
     shape_q = (LM_BATCH, LM_PROMPT, lm_full.n_heads, lm_hd)
     shape_kv = (LM_BATCH, LM_PROMPT, lm_full.n_kv_heads, lm_hd)
@@ -671,10 +779,34 @@ def main() -> int:
         f"{100 * lm_cfg.n_layers * flash_ms / (prefill_s * 1e3):.1f}% of the {prefill_s * 1e3:.1f} ms prefill")
     report.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:153", "launches": lm_launches,
         "max_abs_err": flash_err[(f"{LM_ARCH} prefill", "bfloat16")], "ms": flash_ms, "plain_ms": flash_plain_ms,
         "bound_ms": flash_bound, "bound_by": flash_by, "library_ms": flash_lib_ms,
+    })
+    # the float32 kernel (CUDA cores) at the same shape, against a float32 plain run and SDPA in float32
+    q, k, v, qt, kt, vt = (x_.float() for x_ in (q, k, v, qt, kt, vt))
+    launch = flash_ops.prepare(q, k, v, causal=True)
+    f32_ms = cuda_ms(launch, iters=5)
+    f32_plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=2, warmup=1)
+    f32_lib_ms = cuda_ms(sdpa, iters=5)
+    lib_diff = float((sdpa().transpose(1, 2) - launch()).abs().max())
+    if not lib_diff <= 1e-4:
+        raise AssertionError(f"flash float32: scaled_dot_product_attention computes another function ({lib_diff:.3e})")
+    fl_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = fl_flops / PEAK_FLOPS["float32"], fl_bytes / HBM_BYTES_PER_S
+    f32_bound = max(t_ops, t_bytes) * 1e3
+    f32_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"time flash_attention {shape_q} float32 causal: kernel {f32_ms:.4f} ms, plain torch {f32_plain_ms:.4f} ms, "
+        f"library {f32_lib_ms:.4f} ms (scaled_dot_product_attention, max abs diff from the kernel {lib_diff:.3e}), "
+        f"bound {f32_bound:.4f} ms ({f32_by}: {fl_flops / 1e9:.1f} GFLOP at {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s outside the tensor cores, {fl_bytes / 1e6:.1f} MB) -- {card}")
+    report.append({
+        "name": "flash_attention_float32", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:153", "launches": lm32_launches,
+        "max_abs_err": flash_err[(f"{LM_ARCH} prefill", "float32")], "ms": f32_ms, "plain_ms": f32_plain_ms,
+        "bound_ms": f32_bound, "bound_by": f32_by, "library_ms": f32_lib_ms,
     })
     del q, k, v, qt, kt, vt, launch
     # the RG-LRU scan at RecurrentGemma-2B's width, float32, arguments prepared once

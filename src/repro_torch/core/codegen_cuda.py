@@ -14,19 +14,24 @@ not its blocks.  The schedule is GridTools' ``gtcuda`` one:
   tile, in groups of consecutive stages with equal extents and no horizontal
   hazard between them, with a ``__syncthreads()`` after each group;
 * read-only inputs read at horizontal offsets are staged plane by plane,
-  tile plus halo, into shared memory; temporaries live in registers (demoted
-  ``impl.local_decls`` whose stages share one group), in shared-memory planes
-  (temporaries of one PARALLEL interval, and the rolling ``window`` planes of
-  ``analysis.sequential_carry_plan``), or, when they cross intervals or
-  multi-stages (the ``full`` carries, vadv's ``cp``/``dp``), in a per-block
-  device scratch the wrapper allocates;
+  tile plus halo, into shared memory, double-buffered: the next plane's copy
+  (``cp.async``) overlaps the current plane's stages; temporaries live in
+  registers (demoted ``impl.local_decls`` whose stages share one group), in
+  shared-memory planes (temporaries of one PARALLEL interval, and the rolling
+  ``window`` planes of ``analysis.sequential_carry_plan``), or, when they
+  cross intervals or multi-stages (the ``full`` carries, vadv's
+  ``cp``/``dp``), in a per-block device scratch the wrapper allocates;
 * ragged tiles are masked in the kernel and outputs are written in place, so
   inout, masked and partial-k outputs keep the caller's values.
 
 What bounds it on an H100: hdiff and vadv do a few flops per byte, far below
-the card's float64 ridge point, so they are bound by device-memory bytes.  The
-(I, J, K) C-order layout makes a warp's loads stride by ``nk`` elements;
-``cp.async``/TMA halo loads and an I-fastest layout are later work.
+the card's float64 ridge point, so they are bound by device-memory bytes.
+``threadIdx.x`` walks J, and so does every loop over a tile, so a warp's
+loads and stores are contiguous rows when J has stride 1: the card layout in
+which ``storage`` allocates the ``cuda`` backend's fields (K slowest, then
+I, then J).  Every field is read through the strides it is handed, so a
+C-order field gives the same answer, with a warp's accesses ``nk`` elements
+apart.
 
 Limits, checked when the source is generated: a written API field may not be
 read at a horizontal offset, or from a stage whose compute extent reaches
@@ -61,7 +66,7 @@ from .codegen_common import Emitter, bound_expr, multistage_plan
 from .gtscript import GTScriptSemanticError
 
 # bump on any change to the generated source: it is part of the fingerprint
-CODEGEN_VERSION = "cuda-1"
+CODEGEN_VERSION = "cuda-2"
 DEFAULT_BLOCK: Tuple[int, int] = (8, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -304,7 +309,7 @@ class _Temp:
 class _Plan:
     """Everything the emitter needs: storage classes, staged inputs, smem."""
 
-    def __init__(self, impl: ir.StencilImplementation, block: Tuple[int, int]):
+    def __init__(self, impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True):
         self.impl = impl
         self.bi, self.bj = int(block[0]), int(block[1])
         if self.bi <= 0 or self.bj <= 0 or self.bi * self.bj > 1024:
@@ -322,6 +327,9 @@ class _Plan:
         self._check_parallel_vertical()
         self.temps = self._classify_temps()
         self.staged = self._staged_inputs()
+        # staged planes double-buffered and filled by cp.async (4- and 8-byte elements)
+        self.async_staging = async_staging and bool(self.staged) and all(
+            np.dtype(self.api[n].dtype).itemsize in (4, 8) for lst in self.staged.values() for n, _ in lst)
         self._layout_smem()
 
     def group_of(self, mi: int, ii: int, si: int) -> int:
@@ -449,7 +457,7 @@ class _Plan:
                     continue
                 seen.add((n, dk))
                 e = self.impl.extent_of(n)
-                add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 1,
+                add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 2 if self.async_staging else 1,
                     np.dtype(self.api[n].dtype).itemsize)
         for t in self.temps.values():
             if t.kind == "plane":
@@ -607,6 +615,14 @@ __device__ __forceinline__ int gt_slot(int level, int slots) {
     int r = level % slots;
     return r < 0 ? r + slots : r;
 }
+// one element from device to shared memory, asynchronously (N: 4 or 8 bytes)
+template <int N>
+__device__ __forceinline__ void gt_cp_async(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "n"(N) : "memory");
+}
+// wait for this thread's outstanding cp.async copies
+__device__ __forceinline__ void gt_cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 """
 
 
@@ -630,8 +646,8 @@ def _close_region_loop(em: Emitter) -> None:
     em.line("__syncthreads();")
 
 
-def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
-    plan = _Plan(impl, block)
+def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True):
+    plan = _Plan(impl, block, async_staging)
     pr = _CPrinter(plan)
     kname = _cname(impl.name)
     float_dt = next((f.dtype for f in impl.api_fields if f.dtype.startswith("float")), "float64")
@@ -687,8 +703,10 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
             seen.add((n, dk))
             e = impl.extent_of(n)
             w = plan.bj + e.j[1] - e.j[0]
+            # double-buffered: ``stg`` is the buffer of the plane being computed
+            buf = f"stg * {_staged_plane_elems(plan, n)} + " if plan.async_staging else ""
             em.line(f"#define S_{n}_{_dk_tag(dk)}(di, dj) ss_{n}_{_dk_tag(dk)}"
-                    f"[(ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}))]")
+                    f"[{buf}(ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}))]")
     for t in plan.temps.values():
         w = plan.bj + t.cols_extra
         h = plan.bi + t.rows_extra
@@ -751,10 +769,21 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
                         f"sp_{t.name}[p] = {t.ctype}(0);")
             em.line("__syncthreads();")
         for ii, itv in enumerate(ms.intervals):
-            pr.staged = set(plan.staged.get((mi, ii), []))
+            staged = plan.staged.get((mi, ii), [])
+            pr.staged = set(staged)
+            prefetch = plan.async_staging and bool(staged)
             em.line("{")
             em.push()
             em.line(f"const int k0 = {bound_expr(itv.interval.start)}, k1 = {bound_expr(itv.interval.end)};")
+            if prefetch:
+                # the first plane's copy starts before the loop
+                em.line("int stg = 0;")
+                em.line("if (k0 < k1) {")
+                em.push()
+                em.line(f"const int k = {'k1 - 1' if backward else 'k0'};")
+                _emit_staging(em, plan, staged, asynchronous=True)
+                em.pop()
+                em.line("}")
             if backward:
                 em.line("for (int k = k1 - 1; k >= k0; --k) {")
             else:
@@ -772,23 +801,29 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
                 ):
                     em.line(f"for (int p = tid; p < {_plane_elems(plan, t)}; p += NT) sp_{t.name}[p] = {t.ctype}(0);")
                     prologue = True
-            for n, dk in plan.staged.get((mi, ii), []):
-                e = impl.extent_of(n)
-                em.line(f"// stage {n}[k{dk:+d}] plane, tile plus halo")
+            if prefetch:
+                # this plane's copies (issued one iteration ago) have landed
+                # for every thread; then the next plane's copy overlaps this
+                # plane's stages (its buffer was last read before the barrier)
+                em.line("gt_cp_async_wait_all();")
+                em.line("__syncthreads();")
+                em.line(f"if ({'k - 1 >= k0' if backward else 'k + 1 < k1'}) {{")
+                em.push()
+                em.line(f"const int k_next = {'k - 1' if backward else 'k + 1'}, stg_next = stg ^ 1;")
                 em.line("{")
                 em.push()
-                em.line(f"const int rh = ti + {e.i[1] - e.i[0]}, rw = tj + {e.j[1] - e.j[0]};")
-                em.line("for (int p = tid; p < rh * rw; p += NT) {")
-                em.push()
-                em.line(f"const int ii = p / rw + ({e.i[0]}), jj = p % rw + ({e.j[0]});")
-                em.line(f"S_{n}_{_dk_tag(dk)}(0, 0) = A_{n}(0, 0, {dk});")
+                em.line("const int k = k_next, stg = stg_next;")
+                _emit_staging(em, plan, staged, asynchronous=True)
                 em.pop()
                 em.line("}")
                 em.pop()
                 em.line("}")
-                prologue = True
-            if prologue:
-                em.line("__syncthreads();")
+            else:
+                if staged:
+                    _emit_staging(em, plan, staged, asynchronous=False)
+                    prologue = True
+                if prologue:
+                    em.line("__syncthreads();")
             for g, stages in enumerate(plan.groups[(mi, ii)]):
                 ext = itv.stages[stages[0]].compute_extent
                 _region_loop(em, ext.i, ext.j)
@@ -799,6 +834,8 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
                     for stmt in itv.stages[si].stmts:
                         pr.stmt(em, stmt)
                 _close_region_loop(em)
+            if prefetch:
+                em.line("stg ^= 1;")
             em.pop()
             em.line("}")
             em.pop()
@@ -825,6 +862,38 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int]):
     return em.source(), plan
 
 
+def _emit_staging(em: Emitter, plan: _Plan, staged, asynchronous: bool) -> None:
+    """Copy plane ``k`` (plus each input's vertical offset) of the staged
+    inputs, tile plus halo, into their shared-memory planes (buffer ``stg``
+    when double-buffered): by ``cp.async`` or by plain loads and stores."""
+    for n, dk in staged:
+        e = plan.impl.extent_of(n)
+        em.line(f"// stage {n}[k{dk:+d}] plane, tile plus halo")
+        em.line("{")
+        em.push()
+        em.line(f"const int rh = ti + {e.i[1] - e.i[0]}, rw = tj + {e.j[1] - e.j[0]};")
+        em.line("for (int p = tid; p < rh * rw; p += NT) {")
+        em.push()
+        em.line(f"const int ii = p / rw + ({e.i[0]}), jj = p % rw + ({e.j[0]});")
+        if asynchronous:
+            isz = np.dtype(plan.api[n].dtype).itemsize
+            em.line(f"gt_cp_async<{isz}>(&S_{n}_{_dk_tag(dk)}(0, 0), &A_{n}(0, 0, {dk}));")
+        else:
+            em.line(f"S_{n}_{_dk_tag(dk)}(0, 0) = A_{n}(0, 0, {dk});")
+        em.pop()
+        em.line("}")
+        em.pop()
+        em.line("}")
+
+
+def _staged_plane_elems(plan: _Plan, name: str) -> int:
+    """Elements of one buffer of a staged plane (16-byte aligned)."""
+    e = plan.impl.extent_of(name)
+    isz = np.dtype(plan.api[name].dtype).itemsize
+    h, w = plan.bi + e.i[1] - e.i[0], plan.bj + e.j[1] - e.j[0]
+    return _round_up(h * w * isz, _SMEM_ALIGN) // isz
+
+
 def _plane_elems(plan: _Plan, t: _Temp) -> int:
     h = plan.bi + t.rows_extra
     w = plan.bj + t.cols_extra
@@ -832,11 +901,15 @@ def _plane_elems(plan: _Plan, t: _Temp) -> int:
 
 
 def generate_cuda_module_source(
-    impl: ir.StencilImplementation, block: Tuple[int, int] = DEFAULT_BLOCK
+    impl: ir.StencilImplementation, block: Tuple[int, int] = DEFAULT_BLOCK, async_staging: bool = True
 ) -> str:
     """The Python module of a ``cuda`` stencil: the CUDA source and the
-    metadata the launcher and the autotuner read."""
-    source, plan = _generate(impl, block)
+    metadata the launcher and the autotuner read.  The staged input planes
+    are double-buffered and the next one is filled by ``cp.async`` while the
+    current one computes; ``async_staging=False`` stages them with plain
+    loads instead, a kernel that exists only so that ``chip_smoke.py`` can
+    time the prefetch against it (no stencil option reaches it)."""
+    source, plan = _generate(impl, block, async_staging)
     if "'''" in source:
         raise AssertionError("generated CUDA source may not contain triple quotes")
     schedule = _schedule(impl, plan.carry)
@@ -845,6 +918,7 @@ def generate_cuda_module_source(
         smem_bytes=plan.smem_bytes,
         temporaries={t.name: t.kind for t in plan.temps.values()},
         staged_inputs=sorted({f"{n}[k{dk:+d}]" for lst in plan.staged.values() for n, dk in lst}),
+        async_staging=plan.async_staging,
     )
     em = Emitter()
     em.line(f'"""Auto-generated by repro_torch.core — stencil {impl.name!r}, backend \'cuda\'."""')
@@ -907,10 +981,14 @@ class NvccLibrary:
     build in parallel; ``load`` builds on first use if nobody did and opens
     the library with ``ctypes``.  ``source``, when given, is written to
     ``src_path`` first (a generated kernel); else ``src_path`` is the file.
+    ``flags`` are added to ``NVCC_FLAGS``; ``log`` holds the compiler's
+    output of the last build in this process ("" when the library was cached).
     """
 
-    def __init__(self, src_path: Path, lib_path: Path, source: Optional[str] = None):
+    def __init__(self, src_path: Path, lib_path: Path, source: Optional[str] = None, flags=()):
         self.src_path, self.lib_path, self.source = src_path, lib_path, source
+        self.flags = tuple(flags)
+        self.log = ""
         self._proc: Optional[subprocess.Popen] = None
         self._tmp: Optional[Path] = None
         self._lib: Optional[ctypes.CDLL] = None
@@ -920,13 +998,15 @@ class NvccLibrary:
         with _build_lock:
             if self._proc is not None or self._lib is not None or self.lib_path.exists():
                 return
-            tag = f"{os.getpid()}.{threading.get_ident()}"
+            # unique per library object: two kernels with one source (a stencil
+            # built twice) each compile into their own temporary file
+            tag = f"{os.getpid()}.{threading.get_ident()}.{id(self)}"
             if self.source is not None:
                 src_tmp = self.src_path.with_name(f"{self.src_path.name}.{tag}.tmp")
                 src_tmp.write_text(self.source)
                 os.replace(src_tmp, self.src_path)
             self._tmp = self.lib_path.with_name(f"{self.lib_path.name}.{tag}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.src_path)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags, "-o", str(self._tmp), str(self.src_path)]
             self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self) -> None:
@@ -938,6 +1018,7 @@ class NvccLibrary:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.src_path}:\n{out}")
+        self.log = out
         os.replace(self._tmp, self.lib_path)
 
     def load(self) -> ctypes.CDLL:

@@ -6,9 +6,17 @@ position of the compute-domain origin inside the buffer — i.e. the halo) and
 implements ``__array__`` so it inter-operates with the rest of the Python
 ecosystem (the paper's buffer-protocol point).
 
-Layout: the reference's (I, J, K) C order, K fastest, so that the port and
-the reference package compare like with like.  No alignment padding: the
-reference's TPU (8, 128) register-tile padding has no counterpart here.
+Layout: the logical shape and indexing are the reference's (I, J, K), so
+that the port and the reference package compare like with like.  The
+physical order is chosen per backend, as GT4Py's storages do: ``debug``,
+``numpy`` and ``torch`` keep C order (K fastest); ``cuda`` fields are laid
+out for the card, K slowest, then I, then J with stride 1
+(``torch.empty((nk, ni, nj)).permute(1, 2, 0)``, strides ``(nj, 1, ni*nj)``),
+because the generated kernel's threads walk J (``codegen_cuda``): a warp's
+loads and stores are then contiguous rows.  A member-batched (N, I, J, K)
+field keeps N outermost.  (I, J) and K fields are the same in both orders.
+No alignment padding: the reference's TPU (8, 128) register-tile padding has
+no counterpart here.
 
 Device: the torch-backed allocators put fields on the card (``device="cuda"``)
 unless the caller names another device, and raise when no GPU is present —
@@ -44,6 +52,29 @@ def _resolve_device(device) -> torch.device:
 
 def _torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
+
+
+_FILL = {"zeros": torch.zeros, "ones": torch.ones, "empty": torch.empty}
+# the physical order of the cuda backend's (I, J, K) and (N, I, J, K) fields,
+# by rank, outermost axis first
+_CARD_AXES = (("I", "J", "K"), ("N", "I", "J", "K"))
+_CARD_ORDER = {3: (2, 0, 1), 4: (0, 3, 1, 2)}
+
+
+def card_tensor(shape, dtype: torch.dtype, device, fill: str = "empty") -> torch.Tensor:
+    """A tensor of logical shape (I, J, K) or (N, I, J, K) in the card layout:
+    K slowest, then I, then J with stride 1 (N outermost)."""
+    shape = tuple(int(s) for s in shape)
+    order = _CARD_ORDER[len(shape)]
+    data = _FILL[fill](tuple(shape[a] for a in order), dtype=dtype, device=device)
+    return data.permute(*np.argsort(order).tolist())
+
+
+def is_card_layout(t: torch.Tensor) -> bool:
+    """True when ``t`` (I, J, K) or (N, I, J, K) has the card layout's strides."""
+    if t.dim() not in (3, 4):
+        return False
+    return t.stride() == card_tensor(t.shape, t.dtype, "meta").stride()
 
 
 class Storage:
@@ -133,12 +164,19 @@ class Storage:
 
     def to_numpy(self) -> np.ndarray:
         if isinstance(self.data, torch.Tensor):
-            return self.data.detach().cpu().numpy()
+            # the logical array in C order, whatever the tensor's layout
+            return self.data.detach().cpu().contiguous().numpy()
         return np.asarray(self.data)
 
 
 def _default_axes(ndim: int) -> Tuple[str, ...]:
     return ("I", "J", "K")[:ndim] if ndim <= 3 else tuple(f"D{i}" for i in range(ndim))
+
+
+def _torch_alloc(shape, tdt, backend, axes, fill, dev) -> torch.Tensor:
+    if backend == "cuda" and axes in _CARD_AXES:
+        return card_tensor(shape, tdt, dev, fill)
+    return _FILL[fill](shape, dtype=tdt, device=dev)
 
 
 def _alloc(shape, dtype, backend, default_origin, fill, axes, device) -> Storage:
@@ -148,14 +186,7 @@ def _alloc(shape, dtype, backend, default_origin, fill, axes, device) -> Storage
     if axes is None:
         axes = _default_axes(len(shape))
     if backend in TORCH_BACKENDS:
-        dev = _resolve_device(device)
-        tdt = _torch_dtype(dtype)
-        if fill == "ones":
-            data = torch.ones(shape, dtype=tdt, device=dev)
-        elif fill == "zeros":
-            data = torch.zeros(shape, dtype=tdt, device=dev)
-        else:
-            data = torch.empty(shape, dtype=tdt, device=dev)
+        data = _torch_alloc(shape, _torch_dtype(dtype), backend, tuple(axes), fill, _resolve_device(device))
     else:
         if device is not None:
             raise ValueError(f"backend {backend!r} storage lives in host memory; device= does not apply")
@@ -190,7 +221,9 @@ def from_array(array, backend="cuda", default_origin=None, dtype=None, axes=None
     if axes is None:
         axes = _default_axes(arr.ndim)
     if backend in TORCH_BACKENDS:
-        data = torch.from_numpy(np.ascontiguousarray(arr)).to(_resolve_device(device))
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        data = _torch_alloc(arr.shape, src.dtype, backend, tuple(axes), "empty", _resolve_device(device))
+        data.copy_(src)
     else:
         if device is not None:
             raise ValueError(f"backend {backend!r} storage lives in host memory; device= does not apply")

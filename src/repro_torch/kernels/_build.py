@@ -29,9 +29,10 @@ class HandKernel:
     the generated stencil kernels.
     """
 
-    def __init__(self, key: str, source: Path, symbol: str, argtypes: Sequence[Any]):
+    def __init__(self, key: str, source: Path, symbol: str, argtypes: Sequence[Any], flags: Sequence[str] = ()):
         self.key = key
         self.source = Path(source)
+        self.flags = tuple(flags)  # nvcc flags beyond codegen_cuda.NVCC_FLAGS
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -42,8 +43,9 @@ class HandKernel:
     @property
     def library(self) -> codegen_cuda.NvccLibrary:
         if self._library is None:
-            digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-            self._library = codegen_cuda.NvccLibrary(self.source, caching.cache_dir() / f"{self.key}.{digest}.so")
+            digest = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()[:12]
+            self._library = codegen_cuda.NvccLibrary(self.source, caching.cache_dir() / f"{self.key}.{digest}.so",
+                                                     flags=self.flags)
         return self._library
 
     def start_build(self) -> None:

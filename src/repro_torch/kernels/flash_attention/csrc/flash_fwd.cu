@@ -19,11 +19,12 @@
 // and of its accumulator in registers, interleaved by float4 chunks so that
 // the TPR threads of a row read neighbouring 16-byte chunks of shared memory
 // (no bank conflicts; the rows of a warp read the same chunks, a broadcast).
-// K and V tiles of BK keys are staged in shared memory as float32.  Scores:
-// each thread's partial dot product, summed over the row's threads by warp
-// shuffles.  All products are float32 FMAs (no TF32, no tensor cores), for
-// float32 and bfloat16 inputs alike, except that for float32 inputs the
-// score dot products are summed in float64: a float32 sum of Dh products
+// K and V tiles of BK keys are staged in shared memory.  Scores: each
+// thread's partial dot product, summed over the row's threads by warp
+// shuffles.  It serves float32 inputs; bfloat16 inputs go to the tensor-core
+// kernel of flash_fwd_sm90.cu.  All products are FMAs on the CUDA cores (no
+// TF32, which cannot meet the tolerance below), and the score dot products
+// are summed in float64: a float32 sum of Dh products
 // carries a rounding error of some 1e-6 in the scores, which moves outputs
 // near zero by more than the reference's float32 tolerance of 2e-6 at long
 // sequences.  Each tile's p and p.v are summed apart and then added to
@@ -31,34 +32,23 @@
 //
 // Bound on an H100: operations.  4 * B * H * Sq * Skv * Dh / 2 flops for a
 // causal prefill against bytes of q, k, v and o read or written once; at
-// B 4, S 2048, H 32, Dh 96 that is 0.10 ms at the bf16 tensor-core peak.
-// This kernel runs on the float32 CUDA cores and is limited by their FMA
-// issue rate; mma/wgmma tiles, TMA and warp specialisation are later work.
+// B 4, S 2048, H 32, Dh 96 that is 1.5 ms at the 67 TFLOP/s float32 peak
+// of the CUDA cores, whose FMA issue rate limits this kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
 
 namespace {
 
 constexpr int NT = 256;  // threads per block
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-// round to nearest even, as torch's float32 -> bfloat16 cast
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
 
 struct Args {
-    const void* q;
-    const void* k;
-    const void* v;
-    void* o;
+    const float* q;
+    const float* k;
+    const float* v;
+    float* o;
     long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
     int sq, skv, h, kh;
     const int* qoff_ptr;  // a 0-d device tensor, or null: then qoff
@@ -69,12 +59,10 @@ struct Args {
     float cap, scale;
 };
 
-template <typename T, int DH, int BK, int TPR>
+template <int DH, int BK, int TPR>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
     constexpr int BQ = NT / TPR;        // query rows per block
     constexpr int NC = DH / (4 * TPR);  // float4 chunks of a row held by one thread
-    // the type of the score dot products: float64 for float32 inputs
-    using Dot = typename std::conditional<std::is_same<T, float>::value, double, float>::type;
     extern __shared__ __align__(16) float smem[];
     float* sk = smem;            // (BK, DH) keys of the tile
     float* sv = smem + BK * DH;  // (BK, DH) values of the tile
@@ -88,13 +76,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
     const bool row_ok = qi < a.sq;
     const int qpos = qoff + qi;
 
-    const T* qp = static_cast<const T*>(a.q) + bb * a.q_sb + (long long)qi * a.q_ss + hh * a.q_sh;
+    const float* qp = a.q + bb * a.q_sb + (long long)qi * a.q_ss + hh * a.q_sh;
     float q[4 * NC], acc[4 * NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            q[4 * c + e] = row_ok ? load_f(qp + 4 * (part + TPR * c) + e) : 0.f;
+            q[4 * c + e] = row_ok ? qp[4 * (part + TPR * c) + e] : 0.f;
             acc[4 * c + e] = 0.f;
         }
     }
@@ -108,8 +96,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
     int k_begin = a.has_window ? max(0, qoff + q0 - a.window + 1) : 0;
     k_begin -= k_begin % BK;
 
-    const T* kb = static_cast<const T*>(a.k) + bb * a.k_sb + kvh * a.k_sh;
-    const T* vb = static_cast<const T*>(a.v) + bb * a.v_sb + kvh * a.v_sh;
+    const float* kb = a.k + bb * a.k_sb + kvh * a.k_sh;
+    const float* vb = a.v + bb * a.v_sb + kvh * a.v_sh;
 
     for (int k0 = k_begin; k0 < k_end; k0 += BK) {
         __syncthreads();  // every thread is done with the previous tile
@@ -117,8 +105,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
             const int j = e / DH, d = e - j * DH, kp = k0 + j;
             float kx = 0.f, vx = 0.f;
             if (kp < kv_len) {
-                kx = load_f(kb + (long long)kp * a.k_ss + d);
-                vx = load_f(vb + (long long)kp * a.v_ss + d);
+                kx = kb[(long long)kp * a.k_ss + d];
+                vx = vb[(long long)kp * a.v_ss + d];
             }
             sk[e] = kx;
             sv[e] = vx;
@@ -130,14 +118,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < BK; ++j) {
             const float4* kr = reinterpret_cast<const float4*>(sk + j * DH);
-            Dot dot = 0;
+            double dot = 0;  // float64 sums: see the head of this file
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
                 const float4 kk = kr[part + TPR * c];
-                dot = mul_add(Dot(q[4 * c + 0]), Dot(kk.x), dot);
-                dot = mul_add(Dot(q[4 * c + 1]), Dot(kk.y), dot);
-                dot = mul_add(Dot(q[4 * c + 2]), Dot(kk.z), dot);
-                dot = mul_add(Dot(q[4 * c + 3]), Dot(kk.w), dot);
+                dot = fma(double(q[4 * c + 0]), double(kk.x), dot);
+                dot = fma(double(q[4 * c + 1]), double(kk.y), dot);
+                dot = fma(double(q[4 * c + 2]), double(kk.z), dot);
+                dot = fma(double(q[4 * c + 3]), double(kk.w), dot);
             }
 #pragma unroll
             for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -176,49 +164,48 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
     }
 
     if (row_ok) {
-        T* op = static_cast<T*>(a.o) + bb * a.o_sb + (long long)qi * a.o_ss + hh * a.o_sh;
+        float* op = a.o + bb * a.o_sb + (long long)qi * a.o_ss + hh * a.o_sh;
         const float den = fmaxf(l, 1e-37f);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) store_f(op + 4 * (part + TPR * c) + e, acc[4 * c + e] / den);
+            for (int e = 0; e < 4; ++e) op[4 * (part + TPR * c) + e] = acc[4 * c + e] / den;
         }
     }
 }
 
-template <typename T, int DH, int BK, int TPR>
+template <int DH, int BK, int TPR>
 cudaError_t run(const Args& a, int b, cudaStream_t stream) {
     constexpr int smem = 2 * BK * DH * (int)sizeof(float);
     constexpr int BQ = NT / TPR;
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, DH, BK, TPR>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH, BK, TPR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((a.sq + BQ - 1) / BQ, a.h, b);
-    flash_fwd_kernel<T, DH, BK, TPR><<<grid, NT, smem, stream>>>(a);
+    flash_fwd_kernel<DH, BK, TPR><<<grid, NT, smem, stream>>>(a);
     return cudaGetLastError();
 }
 
 // BK keys per tile: 64, and 32 at Dh 256 (at most 80 KB of float32 K and V);
 // TPR threads per row: 4, and 8 from Dh 128 on (at most 40 floats each of q,
 // acc and p.v per thread)
-template <typename T>
 cudaError_t dispatch(int dh, const Args& a, int b, cudaStream_t stream) {
     switch (dh) {
-        case 16: return run<T, 16, 64, 4>(a, b, stream);
-        case 32: return run<T, 32, 64, 4>(a, b, stream);
-        case 64: return run<T, 64, 64, 4>(a, b, stream);
-        case 96: return run<T, 96, 64, 4>(a, b, stream);
-        case 128: return run<T, 128, 64, 8>(a, b, stream);
-        case 160: return run<T, 160, 64, 8>(a, b, stream);
-        case 256: return run<T, 256, 32, 8>(a, b, stream);
+        case 16: return run<16, 64, 4>(a, b, stream);
+        case 32: return run<32, 64, 4>(a, b, stream);
+        case 64: return run<64, 64, 4>(a, b, stream);
+        case 96: return run<96, 64, 4>(a, b, stream);
+        case 128: return run<128, 64, 8>(a, b, stream);
+        case 160: return run<160, 64, 8>(a, b, stream);
+        case 256: return run<256, 32, 8>(a, b, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Strides in elements.  Returns a cudaError_t.
-extern "C" int flash_fwd(int dtype, int dh, const void* q, const void* k, const void* v, void* o,
+// float32 tensors.  Strides in elements.  Returns a cudaError_t.
+extern "C" int flash_fwd(int dh, const void* q, const void* k, const void* v, void* o,
                          long long q_sb, long long q_ss, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh,
@@ -227,14 +214,13 @@ extern "C" int flash_fwd(int dtype, int dh, const void* q, const void* k, const 
                          const void* qoff_ptr, int qoff, const void* kvlen_ptr, int kvlen,
                          int causal, int has_window, int window, int has_cap, float cap, float scale,
                          void* stream) {
-    Args a{q, k, v, o,
+    Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+           static_cast<float*>(o),
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            sq, skv, h, kh,
            static_cast<const int*>(qoff_ptr), qoff, static_cast<const int*>(kvlen_ptr), kvlen,
            causal, has_window, window, has_cap, cap, scale};
     if (b <= 0 || sq <= 0 || h <= 0 || kh <= 0 || h % kh != 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return (int)dispatch<float>(dh, a, b, s);
-    if (dtype == 1) return (int)dispatch<__nv_bfloat16>(dh, a, b, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)dispatch(dh, a, b, s);
 }

@@ -1,11 +1,20 @@
 """Flash attention in the model's (B, S, H, Dh) layout.
 
-On CUDA tensors ``flash_attention`` launches the hand-written Hopper kernel
-``csrc/flash_fwd.cu``, the counterpart of the reference's Pallas TPU kernel
-(``repro/kernels/flash_attention``); it reads the layout through strides, so
-there is no transpose and no padding to block multiples.  On CPU tensors it
-runs the plain version (``ref.flash_attention_ref``); that is how the CPU
-tests drive it.  Anything else raises.
+On CUDA tensors ``flash_attention`` launches a hand-written Hopper kernel,
+the counterpart of the reference's Pallas TPU kernel
+(``repro/kernels/flash_attention``), chosen by dtype:
+
+* bfloat16: ``csrc/flash_fwd_sm90.cu`` (``KERNEL_BF16``), both products on
+  the tensor cores (``wgmma``), P rounded to bfloat16 before P·V;
+* float32: ``csrc/flash_fwd.cu`` (``KERNEL``), float32 FMAs on the CUDA
+  cores, because TF32 tensor-core products (about three decimal digits)
+  cannot meet the reference's float32 tolerance of 2e-6.
+
+Both read the layout through strides, so there is no transpose and no padding
+to block multiples.  On CPU tensors it runs the plain version
+(``ref.flash_attention_ref``); that is how the CPU tests drive it.  Anything
+else raises, and a CUDA tensor never takes another route than its dtype's
+kernel: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -22,16 +31,18 @@ from repro_torch.kernels._build import HandKernel
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# (dh, q, k, v, o, 12 strides, b, sq, skv, h, kh, q_offset, kv_len, masks, cap, scale, stream)
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
-KERNEL = HandKernel(
-    "flash_fwd",
-    Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",
-    "flash_fwd",
-    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-)
+# float32 inputs: FMAs on the CUDA cores
+KERNEL = HandKernel("flash_fwd", _CSRC / "flash_fwd.cu", "flash_fwd", _ARGTYPES)
+# bfloat16 inputs: wgmma on the tensor cores; -Xptxas -v reports registers and spills
+KERNEL_BF16 = HandKernel("flash_fwd_sm90", _CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", _ARGTYPES,
+                         flags=("-Xptxas", "-v"))
 
 
 def _scalar(x, name: str, device: torch.device):
@@ -83,14 +94,20 @@ def prepare(q, k, v, *, causal: bool = True, q_offset=0, kv_len=None, window: Op
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must be contiguous along head_dim")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not in {tuple(_DTYPES)}")
+        raise TypeError(f"flash_attention: dtype {q.dtype} not in {_DTYPES}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the tensor-core kernel copies 16-byte chunks of rows
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+                raise ValueError(f"flash_attention: bfloat16 {name} needs 16-byte aligned rows (a data pointer "
+                                 f"aligned to 16 bytes and strides that are multiples of 8), got strides {t.stride()}")
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return lambda: o
     qoff_t, qoff_ptr, qoff = _scalar(q_offset, "q_offset", q.device)
     klen_t, klen_ptr, klen = _scalar(skv if kv_len is None else kv_len, "kv_len", q.device)
     args = (
-        _DTYPES[q.dtype], dh,
+        dh,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         b, sq, skv, h, kh,
@@ -98,9 +115,10 @@ def prepare(q, k, v, *, causal: bool = True, q_offset=0, kv_len=None, window: Op
         int(causal), int(window is not None), int(window or 0), int(cap is not None), float(cap or 0.0),
         float(1.0 / np.sqrt(dh)), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    kernel = KERNEL_BF16 if bf16 else KERNEL
 
     def launch() -> torch.Tensor:
-        KERNEL.launch(*args)
+        kernel.launch(*args)
         return o
 
     # the inputs and the device scalars live as long as the launcher

@@ -15,19 +15,23 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.codegen_cuda import DEFAULT_BLOCK
+from repro_torch.core.storage import card_tensor
 from repro_torch.stencils.hdiff import HALO, build_hdiff
 
 
 def hdiff(in_phi: torch.Tensor, alpha, *, lim: float = 0.01,
           block: Tuple[int, int] = DEFAULT_BLOCK) -> torch.Tensor:
-    """in_phi: (NI+6, NJ+6, NK) with a 3-deep halo; returns a new tensor of
-    the same shape with the interior updated and the halo ring copied."""
+    """in_phi: (NI+6, NJ+6, NK) with a 3-deep halo, in any layout; returns a
+    new tensor of the same shape, in the card layout, with the interior
+    updated and the halo ring copied."""
     if in_phi.dim() != 3:
         raise ValueError(f"hdiff: expected a 3-d (NI+6, NJ+6, NK) tensor, got shape {tuple(in_phi.shape)}")
     ni, nj, nk = in_phi.shape[0] - 2 * HALO, in_phi.shape[1] - 2 * HALO, in_phi.shape[2]
     st = build_hdiff("cuda", lim=lim, dtype=str(in_phi.dtype).replace("torch.", ""), block=tuple(block))
-    # seed the output with the input so the (unwritten) halo ring survives
-    out = in_phi.clone()
+    # seed the output with the input so the (unwritten) halo ring survives;
+    # the output is in the card layout whatever the input's (storage.py)
+    out = card_tensor(in_phi.shape, in_phi.dtype, in_phi.device)
+    out.copy_(in_phi)
     st(in_phi, out, alpha=alpha, domain=(ni, nj, nk), origin=(HALO, HALO, 0))
     return out
 

@@ -5,6 +5,10 @@ stacked along a leading axis (``decoder/blocks``, ``decoder/groups``,
 ``encoder/blocks``); the port holds a :class:`ParamTree` with one subtree per
 layer.  Pass ``np.asarray`` of every leaf (``jax.tree_util.tree_map(np.asarray,
 params)``): this module imports neither JAX nor the reference.
+
+Like every entry point of the port, these put what they carry on the card
+unless the caller names another device (the CPU tests pass ``device="cpu"``);
+without a GPU a call that names none raises instead of landing on the host.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from .layers import ParamTree
 _STACKED = frozenset({"blocks", "groups"})
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device="cuda") -> torch.Tensor:
     """A numpy array (bfloat16 included, as JAX hands it out) as a tensor."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -53,12 +57,12 @@ def _convert(tree: Any, device) -> Any:
     return out
 
 
-def params_from_reference(tree: Dict[str, Any], device="cpu") -> ParamTree:
+def params_from_reference(tree: Dict[str, Any], device="cuda") -> ParamTree:
     """The reference's parameter tree (numpy leaves) as the port's ParamTree."""
     return ParamTree(_convert(tree, device))
 
 
-def cache_from_reference(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def cache_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The reference's dense KV cache ({'layers': {'k', 'v': (L, B, Smax, Kh,
     Dh)}, 'pos': ()}, numpy leaves) as the port's cache."""
     return {

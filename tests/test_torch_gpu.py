@@ -70,6 +70,9 @@ from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
 from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
 
 _FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+# (the kernel a dtype goes to, the one it must not touch)
+_ROUTES = {torch.bfloat16: (flash_ops.KERNEL_BF16, flash_ops.KERNEL),
+           torch.float32: (flash_ops.KERNEL, flash_ops.KERNEL_BF16)}
 
 
 def _normal(shape, seed, device, dtype):
@@ -85,10 +88,11 @@ def test_flash_kernel_matches_plain_on_the_card(card, b, s, h, kh, dh, dtype):
     q = _normal((b, s, h, dh), 1, card, dtype)
     k = _normal((b, s, kh, dh), 2, card, dtype)
     v = _normal((b, s, kh, dh), 3, card, dtype)
-    before = flash_ops.KERNEL.launches
+    route, other = _ROUTES[dtype]
+    before, before_other = route.launches, other.launches
     o = flash_ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert flash_ops.KERNEL.launches == before + 1
+    assert route.launches == before + 1 and other.launches == before_other
     tol = _FLASH_TOL[dtype]
     torch.testing.assert_close(o.float(), flash_attention_ref(q, k, v, causal=True).float(), rtol=tol, atol=tol)
 
@@ -120,6 +124,145 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
     q = torch.zeros(1, 8, 2, 32, device=card, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         flash_ops.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 tensor-core flash kernel (csrc/flash_fwd_sm90.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_check(q, k, v, **kw):
+    """One launch of the tensor-core kernel against the plain version in
+    float32 on the same bfloat16 inputs, at the reference's 2e-2."""
+    before, before_f32 = flash_ops.KERNEL_BF16.launches, flash_ops.KERNEL.launches
+    o = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL_BF16.launches == before + 1 and flash_ops.KERNEL.launches == before_f32
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(o.float(), ref, rtol=2e-2, atol=2e-2)
+    return o
+
+
+@pytest.mark.parametrize("dh", flash_ops.HEAD_DIMS)
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (6, 1)], ids=["MHA", "GQA", "MQA"])
+def test_flash_bf16_tensor_core_kernel_every_head_dim(card, dh, h, kh):
+    # 300 rows: not a multiple of the 128-row q blocks nor of the 64/128-key tiles
+    q = _normal((2, 300, h, dh), 11, card, torch.bfloat16)
+    k, v = (_normal((2, 300, kh, dh), seed, card, torch.bfloat16) for seed in (12, 13))
+    _bf16_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dh", [32, 96, 160, 256])
+def test_flash_bf16_noncausal_window_cap_and_strided_views(card, dh):
+    qkv = _normal((2, 200, 12, dh), 14, card, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]  # strided views, head_dim contiguous
+    _bf16_check(q, k, v, causal=False)
+    _bf16_check(q, k, v, causal=True, window=37, cap=20.0)
+    _bf16_check(q, k, v, causal=False, window=50)
+    _bf16_check(q[:, :77], k, v, causal=False)  # fewer queries than keys
+
+
+def test_flash_bf16_decode_rows_with_host_and_device_offsets(card):
+    q = _normal((2, 1, 8, 96), 15, card, torch.bfloat16)
+    k, v = (_normal((2, 300, 2, 96), seed, card, torch.bfloat16) for seed in (16, 17))
+    for t in (0, 13, 127, 128, 255, 299):
+        pos = torch.tensor(t, dtype=torch.int32, device=card)
+        a = _bf16_check(q, k, v, causal=True, q_offset=t, kv_len=t + 1)
+        b = _bf16_check(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_row_with_no_key_gives_zero(card):
+    q = _normal((1, 130, 4, 64), 18, card, torch.bfloat16)
+    k, v = (_normal((1, 64, 2, 64), seed, card, torch.bfloat16) for seed in (19, 20))
+    for kw in ({"causal": False, "kv_len": 0}, {"causal": True, "kv_len": 0},
+               {"causal": False, "kv_len": torch.tensor(0, dtype=torch.int32, device=card)}):
+        o = flash_ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, torch.zeros_like(o)), kw
+
+
+def test_flash_float32_route_keeps_the_cuda_core_kernel(card):
+    q = _normal((1, 96, 4, 64), 21, card, torch.float32)
+    before, before_bf16 = flash_ops.KERNEL.launches, flash_ops.KERNEL_BF16.launches
+    o = flash_ops.flash_attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.launches == before + 1 and flash_ops.KERNEL_BF16.launches == before_bf16
+    torch.testing.assert_close(o.double(), flash_attention_ref(q.double(), q.double(), q.double()),
+                               rtol=2e-6, atol=2e-6)
+
+
+def test_flash_bf16_refuses_misaligned_rows(card):
+    x = torch.zeros(1, 8, 2 * 32 + 4, device=card, dtype=torch.bfloat16)
+    q = x[:, :, 4:].unflatten(-1, (2, 32))  # 8-byte offset: rows not 16-byte aligned
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the generated stencil kernels on card-layout and C-order fields
+# ---------------------------------------------------------------------------
+
+
+def _stencil_pairs():
+    """name -> build(backend, dtype) of every generated stencil of the paths"""
+    from repro_torch.core.stencil import build_retyped
+    from repro_torch.stencils import forecast, vintg
+    from repro_torch.stencils import vadv as t_vadv
+
+    def climate(defs):
+        return lambda be, dt: build_retyped(defs, be, dt)
+
+    return {
+        "hdiff": lambda be, dt: t_hdiff.build_hdiff(be, dtype=dt),
+        "hdiff_nolimit": lambda be, dt: t_hdiff.build_hdiff(be, lim=-1e30, dtype=dt),
+        "hdiff_smag": lambda be, dt: t_hdiff.build_hdiff_smag(be, dtype=dt),
+        "vadv": lambda be, dt: t_vadv.build_vadv(be, dtype=dt),
+        "vadv_boundary": lambda be, dt: t_vadv.build_vadv_boundary(be, dtype=dt),
+        "vintg": lambda be, dt: vintg.build_vintg(be, dtype=dt),
+        "climate.advect": climate(forecast.advect_defs),
+        "climate.euler": climate(forecast.euler_defs),
+        "climate.diffuse": climate(forecast.diffuse_defs),
+        "climate.vadv_system": climate(t_vadv.vadv_system_defs),
+        "climate.vadv": climate(t_vadv.vadv_defs),
+    }
+
+
+_STENCIL_SCALARS = {"alpha": 0.05, "dt": 0.1, "dz": 0.7, "dx": 1.1, "dy": 0.9, "weight": 0.6, "decay": 0.9}
+
+
+@pytest.mark.parametrize("layout", ["card", "c_order"])
+@pytest.mark.parametrize("name", sorted(_stencil_pairs()))
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("float32", 1e-5)])
+def test_generated_kernels_on_both_layouts(card, name, layout, dtype, tol):
+    from repro_torch.core import storage
+
+    build = _stencil_pairs()[name]
+    st, plain = build("cuda", dtype), build("torch", dtype)
+    fdt = {n: str(info.dtype) for n, info in st.field_info.items()}
+    h, domain = 3, (61, 45, 19)
+    rng = np.random.default_rng(len(name))
+    shape = (domain[0] + 2 * h, domain[1] + 2 * h, domain[2])
+    data = {n: rng.normal(size=shape) for n in st.field_info}
+    if "b" in data:
+        data["a"], data["c"] = data["a"] * 0.1, data["c"] * 0.1
+        data["b"] = np.abs(data["b"]) + 2.0
+    scalars = {s.name: _STENCIL_SCALARS[s.name] for s in st.implementation_ir.scalars}
+    outs, before = [], st.launches
+    for s_, lay in ((st, layout), (plain, "c_order")):
+        if lay == "card":
+            f = {n: storage.from_array(a, backend="cuda", dtype=fdt[n]).data for n, a in data.items()}
+            assert all(storage.is_card_layout(t) for t in f.values())
+        else:
+            f = {n: torch.from_numpy(a.astype(fdt[n])).to(card) for n, a in data.items()}
+        s_(**f, **scalars, domain=domain, origin=(h, h, 0))
+        outs.append(f)
+    torch.cuda.synchronize()
+    assert st.launches == before + 1 and plain.launches == 0
+    for n in st.implementation_ir.written_api_fields():
+        assert storage.is_card_layout(outs[0][n]) == (layout == "card")  # written in place
+        torch.testing.assert_close(outs[0][n], outs[1][n], rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 16, 8), (2, 64, 32), (3, 100, 48), (2, 37, 130)])

@@ -123,7 +123,7 @@ def _models(arch, impl=None):
         t_cfg = dataclasses.replace(t_cfg, attention_impl=impl[1])
     r_model, t_model = r_build_model(r_cfg), build_model(t_cfg)
     tree = _true_fan_in(_ref_tree(r_model.init_params(jax.random.PRNGKey(2))), r_cfg)
-    return r_model, jax.tree_util.tree_map(jnp.asarray, tree), t_model, params_from_reference(tree)
+    return r_model, jax.tree_util.tree_map(jnp.asarray, tree), t_model, params_from_reference(tree, device="cpu")
 
 
 def _tokens(cfg, b, s, seed=0):
@@ -152,7 +152,7 @@ def _serve_both(arch, impl, b=2, prompt=8, steps=4):
     r_model, r_params, t_model, t_params = _models(arch, impl)
     tokens = _tokens(t_model.cfg, b, prompt + steps, seed=1)
     r_cache = r_model.make_cache(batch=b, max_len=prompt + steps + 4)
-    t_cache = cache_from_reference(_ref_tree(r_cache))
+    t_cache = cache_from_reference(_ref_tree(r_cache), device="cpu")
     pairs = []
     r_logits, r_cache = jax.jit(r_model.prefill)(r_params, {"tokens": jnp.asarray(tokens[:, :prompt])}, r_cache)
     t_logits, t_cache = t_model.prefill(t_params, {"tokens": torch.from_numpy(tokens[:, :prompt])}, t_cache)
@@ -217,6 +217,32 @@ def test_init_params_is_seeded_per_leaf():
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
     assert not torch.equal(a["decoder"]["blocks"][0]["mlp"]["wi"]["kernel"], wa)
     assert sum(p.numel() for p in a.parameters()) == exact_param_count(model.cfg)
+
+
+def test_carried_weights_and_caches_default_to_the_card():
+    """``convert`` puts what it carries on the card unless the caller names
+    another device, like every entry point of the port; without a GPU a call
+    that names none raises instead of landing on the host."""
+    import inspect
+
+    from repro_torch.models import convert
+
+    for fn in (convert.to_tensor, convert.params_from_reference, convert.cache_from_reference):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    r_model = r_build_model(r_get_arch("phi3-mini-3.8b").reduced)
+    tree = _ref_tree(r_model.init_params(jax.random.PRNGKey(0)))
+    cache = _ref_tree(r_model.make_cache(batch=1, max_len=4))
+    on_cpu = params_from_reference(tree, device="cpu")
+    assert all(p.device.type == "cpu" for p in on_cpu.parameters())
+    assert cache_from_reference(cache, device="cpu")["pos"].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in params_from_reference(tree).parameters())
+        assert cache_from_reference(cache)["layers"]["k"].is_cuda
+    else:
+        for call in (lambda: params_from_reference(tree), lambda: cache_from_reference(cache),
+                     lambda: convert.to_tensor(np.zeros(3))):
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
 
 
 # ---------------------------------------------------------------------------

@@ -96,8 +96,9 @@ def test_flash_impl_on_cpu_tensors_launches_nothing():
     o = t_attn.attend(q, q[:, :, :2], q[:, :, 2:], impl="flash", causal=True)
     assert o.shape == q.shape
     assert flash_ops.KERNEL.launches == 0 and rglru_ops.KERNEL.launches == 0
+    assert flash_ops.KERNEL_BF16.launches == 0
     assert codegen_cuda.launch_counts() == before
-    assert before.get("flash_fwd") == 0 and before.get("rglru_scan") == 0
+    assert before.get("flash_fwd") == 0 and before.get("rglru_scan") == 0 and before.get("flash_fwd_sm90") == 0
 
 
 def test_flash_wrapper_refuses_other_devices():
