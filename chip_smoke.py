@@ -7,10 +7,10 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: every stencil below is generated and compiled with nvcc (sm_90a),
-   with the hand-written flash-attention (float32: ``flash_fwd.cu``;
-   bfloat16 on the tensor cores: ``flash_fwd_sm90.cu``, whose ``-Xptxas -v``
-   registers and spills are printed) and RG-LRU sources, all at once, into
-   ``.gt_cache_torch/``;
+   with the hand-written flash-attention (float32, scores on the float64
+   tensor cores: ``flash_fwd.cu``; bfloat16 on the tensor cores:
+   ``flash_fwd_sm90.cu``; their ``-Xptxas -v`` registers and spills are
+   printed) and RG-LRU sources, all at once, into ``.gt_cache_torch/``;
 3. kernel vs plain: each generated kernel against the plain torch backend on
    the same CUDA inputs, float64 and float32, at 256 x 256 x 80 and on a
    ragged domain, on fields in the card layout (``storage``) and in C order;
@@ -20,9 +20,11 @@ Phases, in order; any failure exits non-zero before the result line:
    bfloat16 (2e-2), on the reference's kernel-test cases and at the widths of
    phi3-mini-3.8b, stablelm-12b and recurrentgemma-2b, and the bfloat16
    kernel on every head dim, MHA, GQA and MQA, ragged lengths, non-causal,
-   window and cap, strided views, decode rows and a row with no key; the
-   RG-LRU kernel at RecurrentGemma-2B's width (4, 4096, 2560), float32 and
-   bfloat16;
+   window and cap, strided views, decode rows and a row with no key, the
+   float32 kernel on every head dim, MHA, GQA 8:32 and MQA, and
+   ``scaled_dot_product_attention``'s own float32 error beside the kernel's;
+   the RG-LRU kernel at RecurrentGemma-2B's width (4, 4096, 2560), float32
+   and bfloat16, bit for bit against the plain loop;
 4. the paths, each with every launch count zeroed just before it and read
    just after: (A) the kernel entry points (``ops.hdiff``, ``ops.vadv``);
    (B) the eager climate step advect → euler → diffuse → vadv_system → vadv
@@ -41,7 +43,10 @@ Phases, in order; any failure exits non-zero before the result line:
    ``scaled_dot_product_attention``), and the least time the card could take
    (its bound); the stencils on card-layout fields (what path B runs), once
    more in C order, and once more without the ``cp.async`` prefetch of
-   staged planes; ``ops.hdiff`` and ``ops.vadv`` also end to end.
+   staged planes; ``ops.hdiff`` and ``ops.vadv`` also end to end; the
+   float32 flash kernel beside its CUDA-core P·V variant and the
+   flash share of the bfloat16 and float32 prefills; RG-LRU in float32 and
+   bfloat16.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -201,10 +206,11 @@ def main() -> int:
     log(f"build: {len(S) + len(corpus) + len(S_sync)} stencils and {len(hand)} hand-written kernels, "
         f"{len({k.key for k in kernels})} CUDA sources compiled for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(corpus programs rejected by the written-API limit: {rejected})")
-    ptxas = [ln.strip() for ln in flash_ops.KERNEL_BF16.library.log.splitlines()
-             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    for ln in ptxas or ["(built in an earlier run: no ptxas output)"]:
-        log(f"ptxas {flash_ops.KERNEL_BF16.source.name}: {ln}")
+    for hk in (flash_ops.KERNEL_BF16, flash_ops.KERNEL):
+        ptxas = [ln.strip() for ln in hk.library.log.splitlines()
+                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+        for ln in ptxas or ["(built in an earlier run: no ptxas output)"]:
+            log(f"ptxas {hk.key}: {ln}")
 
     # ---------------------------------------------------------------- 3. kernel vs plain
     rng = np.random.default_rng(2024)
@@ -323,12 +329,14 @@ def main() -> int:
     flash_route = {"float32": (flash_ops.KERNEL, flash_ops.KERNEL_BF16),
                    "bfloat16": (flash_ops.KERNEL_BF16, flash_ops.KERNEL)}
 
-    def check_flash(label, dtype, q_shape, kv_shape, qkv=None, **kw):
+    def check_flash(label, dtype, q_shape, kv_shape, qkv=None, sdpa=False, **kw):
         """The kernel of the dtype's route against the plain version on the
         same inputs: in float64 for float32 inputs (the float32 plain
         version's own rounding of the scores is of the order of the 2e-6
         tolerance at these lengths), in float32 for bfloat16 inputs, as the
-        reference's kernel tests.  ``qkv`` replaces the random inputs."""
+        reference's kernel tests.  ``qkv`` replaces the random inputs;
+        ``sdpa`` also logs scaled_dot_product_attention's error (float32,
+        masks that are only causal or none)."""
         if qkv is None:
             qkv = normal(q_shape, dtype, 1), normal(kv_shape, dtype, 2), normal(kv_shape, dtype, 3)
         q, k, v = qkv
@@ -347,6 +355,15 @@ def main() -> int:
             f"(rtol {tol:g}, atol {tol:g}; plain version in {'float64' if dtype == 'float32' else 'float32'})")
         if not (torch.isfinite(got).all() and torch.allclose(got.double(), ref.double(), rtol=tol, atol=tol)):
             raise AssertionError(f"flash {label} {dtype}: the kernel differs from the plain version by {err:.3e}")
+        if sdpa:
+            # what scaled_dot_product_attention's float32 time buys: its own error on the same inputs
+            rep_ = q.shape[2] // k.shape[2]
+            qt_, kt_, vt_ = (x.transpose(1, 2).repeat_interleave(r, dim=1) for x, r in ((q, 1), (k, rep_), (v, rep_)))
+            lib = torch.nn.functional.scaled_dot_product_attention(qt_, kt_, vt_, is_causal=kw["causal"])
+            sdpa_err[label] = float((lib.transpose(1, 2).double() - ref.double()).abs().max())
+            del qt_, kt_, vt_, lib
+            log(f"check flash {label:30s} float32  scaled_dot_product_attention's own max_abs_err "
+                f"{sdpa_err[label]:.3e} against the same float64 plain run (the kernel's: {err:.3e})")
         return err
 
     lm_full = get_arch(LM_ARCH).full
@@ -360,11 +377,11 @@ def main() -> int:
         ("stablelm-12b GQA", (1, 2048, 32, 8, 160), {}),
         ("recurrentgemma-2b MQA window", (1, 4096, 10, 1, 256), {"window": 2048}),
     ]
-    flash_err = {}
+    flash_err, sdpa_err = {}, {}
     for dtype in ("float32", "bfloat16"):
         for label, (b_, s_, h_, kh_, dh_), kw in flash_cases:
             flash_err[(label, dtype)] = check_flash(label, dtype, (b_, s_, h_, dh_), (b_, s_, kh_, dh_),
-                                                    causal=True, **kw)
+                                                    sdpa=dtype == "float32" and not kw, causal=True, **kw)
     check_flash("window + cap", "float32", (2, 64, 4, 32), (2, 64, 4, 32), causal=True, window=16, cap=20.0)
     for t in (0, 13, 31):
         pos = torch.tensor(t, dtype=torch.int32, device=dev)
@@ -372,11 +389,13 @@ def main() -> int:
                     kv_len=t + 1)
         check_flash(f"decode row t={t} (device offsets)", "float32", (1, 1, 4, 32), (1, 32, 2, 32), causal=True,
                     q_offset=pos, kv_len=pos + 1)
-    # the bfloat16 tensor-core kernel: every head dim, MHA, GQA and MQA, 300
-    # rows (not a multiple of the 128-row q blocks nor of the 64/128-key tiles)
+    # both kernels on every head dim, MHA, GQA and MQA, 300 rows (not a
+    # multiple of either kernel's q blocks nor of its kv tiles)
     for dh_ in flash_ops.HEAD_DIMS:
         for label, h_, kh_ in (("MHA", 4, 4), ("GQA", 8, 2), ("MQA", 6, 1)):
             check_flash(f"Dh {dh_} {label}", "bfloat16", (2, 300, h_, dh_), (2, 300, kh_, dh_), causal=True)
+        check_flash(f"Dh {dh_} GQA 8:32", "float32", (2, 300, 32, dh_), (2, 300, 8, dh_), causal=True)
+        check_flash(f"Dh {dh_} MQA", "float32", (2, 300, 6, dh_), (2, 300, 1, dh_), causal=True)
     qkv = normal((2, 200, 12, 96), "bfloat16", 4)
     views = (qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:])  # strided views, head_dim contiguous
     for label, kw in (("non-causal, strided views", {"causal": False}),
@@ -414,10 +433,13 @@ def main() -> int:
         log(f"check rglru_scan {RGLRU_SHAPE} {dtype:8s} max_abs_err {rglru_err[dtype]:.3e} (rtol {tol:g}, atol {tol:g})")
         if not (torch.isfinite(got).all() and torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)):
             raise AssertionError(f"rglru_scan {dtype}: the kernel differs from the plain version")
-    x_rg = normal(RGLRU_SHAPE, "float32", 12)
-    if not torch.equal(rglru_ops.rglru_scan(torch.zeros_like(x_rg), x_rg), x_rg):
-        raise AssertionError("rglru_scan: zero decay does not give y == b exactly")
-    log("check rglru_scan zero decay: y == b exactly")
+        if not torch.equal(got, ref):  # each update rounded as the plain loop rounds it
+            raise AssertionError(f"rglru_scan {dtype}: not the plain loop's bits")
+    for dtype in ("float32", "bfloat16"):
+        x_rg = normal(RGLRU_SHAPE, dtype, 12)
+        if not torch.equal(rglru_ops.rglru_scan(torch.zeros_like(x_rg), x_rg), x_rg):
+            raise AssertionError(f"rglru_scan {dtype}: zero decay does not give y == b exactly")
+    log("check rglru_scan: the plain loop's bits in float32 and bfloat16; zero decay gives y == b exactly")
 
     # ---------------------------------------------------------------- 4. the paths
     def ran(counts):
@@ -784,15 +806,23 @@ def main() -> int:
         "max_abs_err": flash_err[(f"{LM_ARCH} prefill", "bfloat16")], "ms": flash_ms, "plain_ms": flash_plain_ms,
         "bound_ms": flash_bound, "bound_by": flash_by, "library_ms": flash_lib_ms,
     })
-    # the float32 kernel (CUDA cores) at the same shape, against a float32 plain run and SDPA in float32
+    # the float32 kernel (both products on the float64 tensor cores at Dh 96) at the same
+    # shape, beside a float32 plain run and SDPA in float32; errors against a float64 plain run
     q, k, v, qt, kt, vt = (x_.float() for x_ in (q, k, v, qt, kt, vt))
     launch = flash_ops.prepare(q, k, v, causal=True)
-    f32_ms = cuda_ms(launch, iters=5)
+    f32_ms = cuda_ms(launch, iters=10)
     f32_plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=2, warmup=1)
-    f32_lib_ms = cuda_ms(sdpa, iters=5)
-    lib_diff = float((sdpa().transpose(1, 2) - launch()).abs().max())
+    f32_lib_ms = cuda_ms(sdpa, iters=10)
+    exact = flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
+    o32 = launch()
+    f32_err = float((o32.double() - exact).abs().max())
+    lib_err = float((sdpa().transpose(1, 2).double() - exact).abs().max())
+    lib_diff = float((sdpa().transpose(1, 2) - o32).abs().max())
+    del exact, o32
     if not lib_diff <= 1e-4:
         raise AssertionError(f"flash float32: scaled_dot_product_attention computes another function ({lib_diff:.3e})")
+    if not f32_err <= FLASH_TOL["float32"]:
+        raise AssertionError(f"flash float32 at {shape_q}: kernel {f32_err:.3e} from the float64 plain run")
     fl_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = fl_flops / PEAK_FLOPS["float32"], fl_bytes / HBM_BYTES_PER_S
     f32_bound = max(t_ops, t_bytes) * 1e3
@@ -800,13 +830,20 @@ def main() -> int:
     log(f"time flash_attention {shape_q} float32 causal: kernel {f32_ms:.4f} ms, plain torch {f32_plain_ms:.4f} ms, "
         f"library {f32_lib_ms:.4f} ms (scaled_dot_product_attention, max abs diff from the kernel {lib_diff:.3e}), "
         f"bound {f32_bound:.4f} ms ({f32_by}: {fl_flops / 1e9:.1f} GFLOP at {PEAK_FLOPS['float32'] / 1e12:.0f} "
-        f"TFLOP/s outside the tensor cores, {fl_bytes / 1e6:.1f} MB) -- {card}")
+        f"TFLOP/s, the float32 rate of the CUDA cores and the float64 rate of the tensor cores, "
+        f"{fl_bytes / 1e6:.1f} MB) -- {card}")
+    log(f"time flash_attention {shape_q} float32 causal, against a float64 plain run: kernel {f32_ms:.4f} ms, "
+        f"max_abs_err {f32_err:.3e}; scaled_dot_product_attention {f32_lib_ms:.4f} ms, max_abs_err "
+        f"{lib_err:.3e} -- {card}")
+    log(f"lm_serve float32: flash kernel {lm_cfg.n_layers} x {f32_ms:.4f} ms = {lm_cfg.n_layers * f32_ms:.1f} ms, "
+        f"{100 * lm_cfg.n_layers * f32_ms / (prefill32_s * 1e3):.1f}% of the {prefill32_s * 1e3:.1f} ms prefill")
     report.append({
         "name": "flash_attention_float32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:153", "launches": lm32_launches,
         "max_abs_err": flash_err[(f"{LM_ARCH} prefill", "float32")], "ms": f32_ms, "plain_ms": f32_plain_ms,
         "bound_ms": f32_bound, "bound_by": f32_by, "library_ms": f32_lib_ms,
+        "library_max_abs_err": lib_err, "prefill_ms": prefill32_s * 1e3,
     })
     del q, k, v, qt, kt, vt, launch
     # the RG-LRU scan at RecurrentGemma-2B's width, float32, arguments prepared once
@@ -820,11 +857,19 @@ def main() -> int:
     rglru_by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"time rglru_scan {RGLRU_SHAPE} float32: kernel {rglru_ms:.4f} ms, plain torch {rglru_plain_ms:.4f} ms, "
         f"no single PyTorch call, bound {rglru_bound:.4f} ms ({rglru_by}: {rg_bytes / 1e6:.1f} MB) -- {card}")
+    a16, x16, h16 = rglru_inputs("bfloat16", 22)
+    rglru_bf16_ms = cuda_ms(rglru_ops.prepare(a16, x16, h16), iters=20)
+    rg16_bytes = 2 * 3 * a16.numel() + 4 * h16.numel()  # h0 is float32
+    rglru_bf16_bound = max(rg_flops / PEAK_FLOPS["float32"], rg16_bytes / HBM_BYTES_PER_S) * 1e3
+    log(f"time rglru_scan {RGLRU_SHAPE} bfloat16: kernel {rglru_bf16_ms:.4f} ms, bound {rglru_bf16_bound:.4f} ms "
+        f"(bytes: {rg16_bytes / 1e6:.1f} MB) -- {card}")
+    del a16, x16, h16
     report.append({
         "name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru/kernel.py:62", "launches": rglru_launches,
         "max_abs_err": rglru_err["float32"], "ms": rglru_ms, "plain_ms": rglru_plain_ms,
         "bound_ms": rglru_bound, "bound_by": rglru_by, "library_ms": None,
+        "ms_bfloat16": rglru_bf16_ms, "bound_ms_bfloat16": rglru_bf16_bound,
     })
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -6,9 +6,11 @@ the counterpart of the reference's Pallas TPU kernel
 
 * bfloat16: ``csrc/flash_fwd_sm90.cu`` (``KERNEL_BF16``), both products on
   the tensor cores (``wgmma``), P rounded to bfloat16 before P·V;
-* float32: ``csrc/flash_fwd.cu`` (``KERNEL``), float32 FMAs on the CUDA
-  cores, because TF32 tensor-core products (about three decimal digits)
-  cannot meet the reference's float32 tolerance of 2e-6.
+* float32: ``csrc/flash_fwd.cu`` (``KERNEL``), the scores summed in float64
+  on the tensor cores (DMMA: a product of two float32 values is exact in
+  float64), and P·V there too up to Dh 96 (on the CUDA cores from Dh 128),
+  because TF32 tensor-core products (about three decimal digits) cannot
+  meet the reference's float32 tolerance of 2e-6.
 
 Both read the layout through strides, so there is no transpose and no padding
 to block multiples.  On CPU tensors it runs the plain version
@@ -38,9 +40,10 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 +
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
-# float32 inputs: FMAs on the CUDA cores
-KERNEL = HandKernel("flash_fwd", _CSRC / "flash_fwd.cu", "flash_fwd", _ARGTYPES)
-# bfloat16 inputs: wgmma on the tensor cores; -Xptxas -v reports registers and spills
+# -Xptxas -v reports registers and spills in the library's log
+# float32 inputs: the float64 tensor cores
+KERNEL = HandKernel("flash_fwd", _CSRC / "flash_fwd.cu", "flash_fwd", _ARGTYPES, flags=("-Xptxas", "-v"))
+# bfloat16 inputs: wgmma on the tensor cores
 KERNEL_BF16 = HandKernel("flash_fwd_sm90", _CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", _ARGTYPES,
                          flags=("-Xptxas", "-v"))
 

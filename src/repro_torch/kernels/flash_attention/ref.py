@@ -116,3 +116,74 @@ def flash_attention_sm90_model(
                 m = m_new
             out[:, rows] = acc / torch.clamp_min(lsum, 1e-37)[..., None]
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# (BQ query rows, BK keys a tile, P·V on the float64 tensor cores) of the
+# float32 kernel (csrc/flash_fwd.cu's dispatch table)
+F32_TILES = {16: (128, 32, True), 32: (128, 32, True), 64: (128, 32, True), 96: (128, 32, True),
+             128: (64, 32, False), 160: (64, 32, False), 256: (32, 16, False)}
+
+
+def flash_attention_f32_model(
+    q: torch.Tensor,  # (B, S, H, Dh) float32
+    k: torch.Tensor,  # (B, Skv, Kh, Dh)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    window: Optional[int] = None,
+    cap: Optional[float] = None,
+) -> torch.Tensor:
+    """The arithmetic of the float32 kernel (``csrc/flash_fwd.cu``) in plain
+    torch: blocks of BQ query rows, kv tiles of BK keys from the block's first
+    visible tile to its last, the scores summed in float64 (the tensor cores'
+    DMMA) and then rounded to float32, scaled and taken to log2 units, the
+    online softmax in float32 with exp2, each tile's p and p·v summed on their
+    own (p·v in float64 where the kernel runs P·V on DMMA, else in float32)
+    and added to the float32 (l, acc).  Only the order of the sums inside a
+    tile differs from the kernel's."""
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    bq, bk, pv_dmma = F32_TILES[dh]
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    kv_len = skv if kv_len is None else min(int(kv_len), skv)
+    scale = torch.tensor(1.0 / np.sqrt(dh), dtype=torch.float32)
+    q64 = q.double().reshape(b, sq, kh, h // kh, dh)
+    k64, vf = k.double(), v.float()
+    out = torch.zeros((b, sq, kh, h // kh, dh), dtype=torch.float32)
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        qpos = rows + q_offset
+        last = q_offset + int(rows[-1])
+        k_end = min(kv_len, last + 1) if causal else kv_len
+        k_begin = max(0, q_offset + q0 - window + 1) if window is not None else 0
+        k_begin -= k_begin % bk
+        acc = torch.zeros((b, len(rows), kh, h // kh, dh))
+        m = torch.full((b, len(rows), kh, h // kh), NEG_INF)
+        lsum = torch.zeros_like(m)
+        for k0 in range(k_begin, k_end, bk):
+            kpos = torch.arange(k0, min(k0 + bk, skv))
+            s = torch.einsum("bqkgd,bskd->bqkgs", q64[:, rows], k64[:, kpos]).float()
+            if cap is not None:
+                s = cap * torch.tanh(s * scale / cap) * log2e
+            else:
+                s = s * (scale * log2e)
+            ok = kpos[None, :] < kv_len
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                ok = ok & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            lsum = lsum * alpha + p.sum(dim=-1)
+            if pv_dmma:  # summed in float64, then rounded
+                pv = torch.einsum("bqkgs,bskd->bqkgd", p.double(), vf[:, kpos].double()).float()
+            else:
+                pv = torch.einsum("bqkgs,bskd->bqkgd", p, vf[:, kpos])
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[:, rows] = acc / torch.clamp_min(lsum, 1e-37)[..., None]
+    return out.reshape(b, sq, h, dh)

@@ -183,7 +183,7 @@ def test_flash_bf16_row_with_no_key_gives_zero(card):
         assert torch.equal(o, torch.zeros_like(o)), kw
 
 
-def test_flash_float32_route_keeps_the_cuda_core_kernel(card):
+def test_flash_float32_route_takes_the_float64_tensor_core_kernel(card):
     q = _normal((1, 96, 4, 64), 21, card, torch.float32)
     before, before_bf16 = flash_ops.KERNEL.launches, flash_ops.KERNEL_BF16.launches
     o = flash_ops.flash_attention(q, q, q, causal=True)
@@ -191,6 +191,67 @@ def test_flash_float32_route_keeps_the_cuda_core_kernel(card):
     assert flash_ops.KERNEL.launches == before + 1 and flash_ops.KERNEL_BF16.launches == before_bf16
     torch.testing.assert_close(o.double(), flash_attention_ref(q.double(), q.double(), q.double()),
                                rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel (csrc/flash_fwd.cu: scores on the float64 tensor cores)
+# ---------------------------------------------------------------------------
+
+
+def _f32_check(q, k, v, **kw):
+    """One launch of the float32 kernel against the plain version in float64
+    on the same inputs, at the reference's 2e-6."""
+    before, before_bf16 = flash_ops.KERNEL.launches, flash_ops.KERNEL_BF16.launches
+    o = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.KERNEL.launches == before + 1 and flash_ops.KERNEL_BF16.launches == before_bf16
+    assert o.dtype == torch.float32 and torch.isfinite(o).all()
+    ref = flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    torch.testing.assert_close(o.double(), ref, rtol=2e-6, atol=2e-6)
+    return o
+
+
+@pytest.mark.parametrize("dh", flash_ops.HEAD_DIMS)
+@pytest.mark.parametrize("h,kh", [(4, 4), (32, 8), (6, 1)], ids=["MHA", "GQA 8:32", "MQA"])
+def test_flash_float32_every_head_dim(card, dh, h, kh):
+    # 300 rows: not a multiple of the 128/64/32-row q blocks nor of the 32/16-key tiles
+    q = _normal((2, 300, h, dh), 31, card, torch.float32)
+    k, v = (_normal((2, 300, kh, dh), seed, card, torch.float32) for seed in (32, 33))
+    _f32_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dh", [32, 96, 160, 256])
+def test_flash_float32_ragged_window_cap_and_strided_views(card, dh):
+    qkv = _normal((2, 203, 12, dh), 34, card, torch.float32)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]  # strided views, head_dim contiguous
+    _f32_check(q, k, v, causal=False)
+    _f32_check(q, k, v, causal=True, window=37, cap=20.0)
+    _f32_check(q, k, v, causal=False, window=50)
+    _f32_check(q[:, :77], k, v, causal=False)  # fewer queries than keys
+    # rows that do not start on 16-byte boundaries: the kernel's 4-byte copies
+    flat = _normal((1, 130, 2 * dh + 1), 35, card, torch.float32)
+    kv = flat[:, :, 1:].unflatten(-1, (2, dh))
+    _f32_check(_normal((1, 130, 4, dh), 36, card, torch.float32), kv, kv, causal=True)
+
+
+def test_flash_float32_decode_rows_with_host_and_device_offsets(card):
+    q = _normal((2, 1, 32, 96), 37, card, torch.float32)
+    k, v = (_normal((2, 300, 8, 96), seed, card, torch.float32) for seed in (38, 39))
+    for t in (0, 13, 31, 32, 127, 299):
+        pos = torch.tensor(t, dtype=torch.int32, device=card)
+        a = _f32_check(q, k, v, causal=True, q_offset=t, kv_len=t + 1)
+        b = _f32_check(q, k, v, causal=True, q_offset=pos, kv_len=pos + 1)
+        assert torch.equal(a, b)
+
+
+def test_flash_float32_row_with_no_key_gives_zero(card):
+    q = _normal((1, 130, 4, 64), 40, card, torch.float32)
+    k, v = (_normal((1, 64, 2, 64), seed, card, torch.float32) for seed in (41, 42))
+    for kw in ({"causal": False, "kv_len": 0}, {"causal": True, "kv_len": 0},
+               {"causal": False, "kv_len": torch.tensor(0, dtype=torch.int32, device=card)}):
+        o = flash_ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, torch.zeros_like(o)), kw
 
 
 def test_flash_bf16_refuses_misaligned_rows(card):
@@ -265,7 +326,10 @@ def test_generated_kernels_on_both_layouts(card, name, layout, dtype, tol):
         torch.testing.assert_close(outs[0][n], outs[1][n], rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("b,s,d", [(1, 16, 8), (2, 64, 32), (3, 100, 48), (2, 37, 130)])
+# strips of channels not a multiple of the 16-byte chunk (130) and step counts not a
+# multiple of the ring (37, 1000), at the model width (2560) and off it (2600)
+@pytest.mark.parametrize("b,s,d", [(1, 16, 8), (2, 64, 32), (3, 100, 48), (2, 37, 130),
+                                   (1, 4096, 2560), (4, 1000, 2600)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_matches_plain_on_the_card(card, b, s, d, dtype):
     rng = np.random.default_rng(b * 100 + s)
@@ -281,6 +345,8 @@ def test_rglru_kernel_matches_plain_on_the_card(card, b, s, d, dtype):
     torch.testing.assert_close(rglru_ops.rglru_scan(a, x), rglru_scan_ref(a, x), rtol=0, atol=0)
 
 
-def test_rglru_kernel_zero_decay_is_identity(card):
-    x = _normal((2, 16, 8), 9, card, torch.float32)
+@pytest.mark.parametrize("shape", [(2, 16, 8), (4, 1000, 2600)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_zero_decay_is_identity(card, shape, dtype):
+    x = _normal(shape, 9, card, dtype)
     assert torch.equal(rglru_ops.rglru_scan(torch.zeros_like(x), x), x)
