@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero before the result line:
    with the hand-written flash-attention (float32, scores on the float64
    tensor cores: ``flash_fwd.cu``; bfloat16 on the tensor cores:
    ``flash_fwd_sm90.cu``; their ``-Xptxas -v`` registers and spills are
-   printed) and RG-LRU sources, all at once, into ``.gt_cache_torch/``;
+   printed) and RG-LRU sources, all at once, into ``.gt_cache_torch/``; the
+   climate step's ``@program`` and its 21-member ``Ensemble`` are compiled
+   first on storages of meta tensors, so that their group kernels, the
+   groups' member-batched kernels and the 21-member statistics stencil
+   build with the rest;
 3. kernel vs plain: each generated kernel against the plain torch backend on
    the same CUDA inputs, float64 and float32, at 256 x 256 x 80 and on a
    ragged domain, on fields in the card layout (``storage``) and in C order;
@@ -24,7 +28,10 @@ Phases, in order; any failure exits non-zero before the result line:
    float32 kernel on every head dim, MHA, GQA 8:32 and MQA, and
    ``scaled_dot_product_attention``'s own float32 error beside the kernel's;
    the RG-LRU kernel at RecurrentGemma-2B's width (4, 4096, 2560), float32
-   and bfloat16, bit for bit against the plain loop;
+   and bfloat16, bit for bit against the plain loop; the climate program's
+   two group kernels against the groups' plain modules, one member and 21
+   members at once (u, v and w shared at member stride 0) against the plain
+   modules member by member (1e-12);
 4. the paths, each with every launch count zeroed just before it and read
    just after: (A) the kernel entry points (``ops.hdiff``, ``ops.vadv``);
    (B) the eager climate step advect → euler → diffuse → vadv_system → vadv
@@ -36,7 +43,16 @@ Phases, in order; any failure exits non-zero before the result line:
    float32 kernel), 32 greedy ``decode_step``s (no launch), held against the
    same run through the plain ``chunked`` attention in bfloat16 and in
    float32 (the float32 prefill: 32 launches of the float32 kernel); (D)
-   ``ops.rglru_scan`` as a user calls it;
+   ``ops.rglru_scan`` as a user calls it; (E) the climate step as a
+   ``@program`` (``stencils/climate.py``): 10 calls, then ``iterate(10)``,
+   two launches a step (one per fused group) and none of the five
+   per-stencil kernels, held against path B's eager step and the torch
+   backend's program (1e-10), iterate against the calls bit for bit; (F)
+   ``Ensemble(climate_step, 21).iterate(10)`` from a seeded perturbation
+   (member 0 the control), one launch per group and step for all members,
+   members 0, 10 and 20 rerun alone through the one-member program bit for
+   bit, and the 21-member statistics in one launch against torch's
+   reductions;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -46,13 +62,17 @@ Phases, in order; any failure exits non-zero before the result line:
    staged planes; ``ops.hdiff`` and ``ops.vadv`` also end to end; the
    float32 flash kernel beside its CUDA-core P·V variant and the
    flash share of the bfloat16 and float32 prefills; RG-LRU in float32 and
-   bfloat16.
+   bfloat16; the program step against the eager step, each group kernel
+   beside its API-byte bound with its full-scratch bytes and ``SCHEDULE``
+   temporaries, each member-batched kernel against the same group for one
+   member, the ensemble per step and per member-step, and the statistics
+   kernel.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+A ``wall:`` line gives each phase's host time. The line before the last is
+the kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,10 +99,29 @@ RGLRU_SHAPE = (4, 4096, 2560)  # RecurrentGemma-2B's width, batch 4
 RGLRU_TOL = {"float32": 5e-6, "bfloat16": 5e-2}
 LM_BF16_REL = 5e-2  # bf16 logits, flash vs chunked: max |diff| <= 5e-2 * max |logit|
 TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}  # (rtol, atol) kernel vs plain
+MEMBERS = 21  # COSMO-E: 20 perturbed members and the control run
+ENS_RERUN = (0, 10, 20)  # members rerun alone through the one-member program
 
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+class Walls:
+    """Host wall time of the script's phases, each from the end of the last."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+        self.parts = []
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.parts.append((name, now - self.last))
+        self.last = now
+
+    def line(self) -> str:
+        total = sum(t for _n, t in self.parts)
+        return "wall: " + ", ".join(f"{n} {t:.1f} s" for n, t in self.parts) + f"; total {total:.1f} s"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -121,9 +160,11 @@ def main() -> int:
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.kernels.vadv.ref import vadv_ref
+    from repro_torch.ensemble import Ensemble, batch, perturb
     from repro_torch.models import build_model
-    from repro_torch.stencils import forecast, hdiff, vadv, vintg
+    from repro_torch.stencils import climate, hdiff, vadv, vintg
 
+    walls = Walls()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -139,6 +180,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, {nvcc.stdout.strip().splitlines()[-1]}")
 
+    walls.mark("start and environment")
     # ---------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     build = {be: gtscript.stencil(backend=be) for be in ("cuda", "torch")}
@@ -150,13 +192,7 @@ def main() -> int:
     S["hdiff_smag/float64"] = {be: hdiff.build_hdiff_smag(be) for be in ("cuda", "torch")}
     S["vadv_boundary/float64"] = {be: vadv.build_vadv_boundary(be) for be in ("cuda", "torch")}
     S["vintg/float64"] = {be: vintg.build_vintg(be) for be in ("cuda", "torch")}
-    climate_defs = {
-        "advect": forecast.advect_defs,
-        "euler": forecast.euler_defs,
-        "diffuse": forecast.diffuse_defs,
-        "vadv_system": vadv.vadv_system_defs,
-        "vadv": vadv.vadv_defs,
-    }
+    climate_defs = climate.DEFINITIONS
     for name, defs in climate_defs.items():
         S[f"climate.{name}"] = {be: build[be](defs) for be in ("cuda", "torch")}
 
@@ -195,15 +231,48 @@ def main() -> int:
     if rejected != expected_rejected:
         raise AssertionError(f"corpus: cuda rejected {rejected}, the reference's limit rejects "
                              f"{expected_rejected}")
+    # the climate step as a @program (path E) and its 21-member ensemble (path
+    # F), compiled now on storages of meta tensors (shapes only) so that their
+    # kernels build with the others: one kernel per fused group, one
+    # member-batched kernel per group, and the 21-member statistics stencil
+    cuda_st = {n: S[f"climate.{n}"]["cuda"] for n in climate_defs}
+    torch_st = {n: S[f"climate.{n}"]["torch"] for n in climate_defs}
+    full_shape = (DOMAIN[0] + 2 * H, DOMAIN[1] + 2 * H, DOMAIN[2])
+    names = climate.FIELD_NAMES
+    shared_names = ("u", "v", "w")  # the winds: one copy, read by every member
+
+    def meta_fields(members=None):
+        def one(n):
+            if members is None or n in shared_names:
+                return storage.Storage(torch.empty(full_shape, dtype=torch.float64, device="meta"), "cuda",
+                                       (H, H, 0))
+            return storage.Storage(torch.empty((members,) + full_shape, dtype=torch.float64, device="meta"),
+                                   "cuda", (0, H, H, 0), ("N", "I", "J", "K"))
+        return {n: one(n) for n in names}
+
+    scalars = {"dt": 0.1, "dx": 1.0, "dy": 1.0, "dz": 1.0, "alpha": 0.05}
+    prog = climate.build_program("cuda", DOMAIN, stencils=cuda_st, name="climate_step")
+    prog_cp = prog.compiled(meta_fields(), scalars)
+    ens = Ensemble(prog, MEMBERS)
+    ens_ce = ens.compiled(meta_fields(MEMBERS), scalars)
+    ens_runs = ens_ce.batched_runs({})
+    ens_stats = ens.statistics()
+    walls.mark("stencil, program and ensemble generation")
+    groups = prog_cp.group_objects
+    group_names = ["+".join(n.replace("_defs", "") for n in g) for g in prog_cp.report["group_stencils"]]
     # the hand-written kernels first: the flash sources take longest
     hand = [flash_ops.KERNEL_BF16, flash_ops.KERNEL, rglru_ops.KERNEL]
     kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     kernels += [s.kernel for s in S_sync.values()]
+    kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
     for k in kernels:
         k.start_build()
     for k in kernels:
         k.finish_build()
-    log(f"build: {len(S) + len(corpus) + len(S_sync)} stencils and {len(hand)} hand-written kernels, "
+    walls.mark("nvcc")
+    log(f"build: {len(S) + len(corpus) + len(S_sync) + 2 * len(groups) + 1} stencils (with the climate "
+        f"program's {len(groups)} group kernels, their member-batched variants and the {MEMBERS}-member "
+        f"statistics) and {len(hand)} hand-written kernels, "
         f"{len({k.key for k in kernels})} CUDA sources compiled for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(corpus programs rejected by the written-API limit: {rejected})")
     for hk in (flash_ops.KERNEL_BF16, flash_ops.KERNEL):
@@ -441,6 +510,74 @@ def main() -> int:
             raise AssertionError(f"rglru_scan {dtype}: zero decay does not give y == b exactly")
     log("check rglru_scan: the plain loop's bits in float32 and bfloat16; zero decay gives y == b exactly")
 
+    walls.mark("kernels vs plain")
+    # the climate program's group kernels, one member and 21 at once, against
+    # the groups' plain torch modules (member by member) on the same inputs;
+    # the member-by-member plain run is timed here, once, for the times phase
+    prog_scalars = prog_cp.runtime_scalars(scalars)
+
+    def group_fields(st, members=None):
+        """The group's API fields on the card in the card layout: the climate
+        state's winds and w, random phi and phi_star (per member), zeros
+        elsewhere; u, v and w shared by the members."""
+        out = {}
+        for n in st.field_info:
+            shape = full_shape if members is None or n in shared_names else (members,) + full_shape
+            t = storage.card_tensor(shape, torch.float64, dev)
+            tgen.manual_seed(len(out) + 100)
+            if n in ("u", "v"):
+                t.fill_(0.8 if n == "u" else -0.4)
+            elif n == "w":
+                t.copy_(0.2 * torch.rand(shape, generator=tgen, device=dev, dtype=torch.float64))
+            elif n in ("phi", "phi_star"):
+                t.copy_(torch.randn(shape, generator=tgen, device=dev, dtype=torch.float64))
+            else:
+                t.zero_()
+            out[n] = t
+        return out
+
+    def member_view(fields, m):
+        return {n: (t if n in shared_names else t[m]) for n, t in fields.items()}
+
+    def check_group(gi, members=None):
+        obj = groups[gi]
+        fields = group_fields(obj, members)
+        origins = {n: (H, H, 0) for n in fields}
+        got = {n: t.clone() for n, t in fields.items()}
+        want = {n: t.clone() for n, t in fields.items()}
+        if members is None:
+            obj.kernel.prepare(got, prog_scalars, DOMAIN, origins)()
+            obj._run(want, prog_scalars, DOMAIN, origins)
+        else:
+            ens_runs[gi].kernel.prepare(got, prog_scalars, DOMAIN, origins, members=members)()
+            # the one-member check ran this module just before: it is warm
+            member_plain_ms[gi] = cuda_ms(lambda: [obj._run(member_view(want, m), prog_scalars, DOMAIN, origins)
+                                                   for m in range(members)], iters=1, warmup=0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for n in obj.implementation_ir.written_api_fields():
+            if not torch.isfinite(got[n]).all():
+                raise AssertionError(f"group {group_names[gi]}: non-finite kernel output {n!r}")
+            err = max(err, float((got[n] - want[n]).abs().max()))
+            if not torch.allclose(got[n], want[n], rtol=1e-12, atol=1e-12):
+                raise AssertionError(f"group {group_names[gi]} (members {members}): kernel differs from plain "
+                                     f"on {n!r} by {err:.3e}")
+        for n in shared_names:
+            if n in fields and not torch.equal(got[n], fields[n]):
+                raise AssertionError(f"group {group_names[gi]}: the shared field {n!r} changed")
+        log(f"check program group {gi} [{group_names[gi]}] {DOMAIN} float64, "
+            f"{'one member' if members is None else f'{members} members (shared {sorted(set(shared_names) & set(fields))})'}: "
+            f"max_abs_err {err:.3e} against the plain module{'' if members is None else ' member by member'} "
+            f"(rtol 1e-12, atol 1e-12)")
+        return err
+
+    member_plain_ms = {}
+    group_err, member_err = [], []
+    for gi in range(len(groups)):
+        group_err.append(check_group(gi))
+        member_err.append(check_group(gi, MEMBERS))
+    walls.mark("program group checks")
+
     # ---------------------------------------------------------------- 4. the paths
     def ran(counts):
         """The kernels that were launched, with their counts."""
@@ -466,9 +603,6 @@ def main() -> int:
     log(f"path kernels: ops.hdiff -> ops.vadv at {DOMAIN}, launches {launches}")
 
     # path B: the eager climate step on storage fields
-    names = ("phi", "u", "v", "w", "adv", "phi_star", "phi_h", "a", "b", "c", "d", "phi_new")
-    scalars = {"dt": 0.1, "dx": 1.0, "dy": 1.0, "dz": 1.0, "alpha": 0.05}
-
     def climate_arrays(domain):
         ni, nj, nk = domain
         shape = (ni + 2 * H, nj + 2 * H, nk)
@@ -486,16 +620,8 @@ def main() -> int:
         return {n: storage.from_array(a, backend=backend, default_origin=(H, H, 0), **kw) for n, a in arrays.items()}
 
     def climate_step(st, f, domain):
-        st["advect"](f["phi"], f["u"], f["v"], f["adv"], dx=scalars["dx"], dy=scalars["dy"], domain=domain)
-        st["euler"](f["phi"], f["adv"], f["phi_star"], dt=scalars["dt"], domain=domain)
-        st["diffuse"](f["phi_star"], f["phi_h"], alpha=scalars["alpha"], domain=domain)
-        st["vadv_system"](f["w"], f["phi_h"], f["a"], f["b"], f["c"], f["d"],
-                          dt=scalars["dt"], dz=scalars["dz"], domain=domain)
-        st["vadv"](f["a"], f["b"], f["c"], f["d"], f["phi_new"], domain=domain)
-        f["phi"], f["phi_new"] = f["phi_new"], f["phi"]
+        climate.eager_step(st, f, domain, scalars)
 
-    cuda_st = {n: S[f"climate.{n}"]["cuda"] for n in climate_defs}
-    torch_st = {n: S[f"climate.{n}"]["torch"] for n in climate_defs}
     arrays = climate_arrays(DOMAIN)
     fk = make_fields(arrays, "cuda")
     torch.cuda.synchronize()
@@ -645,10 +771,118 @@ def main() -> int:
     only_these_ran("rglru entry point", {"rglru_scan": rglru_launches})
     log(f"path rglru: ops.rglru_scan at {RGLRU_SHAPE} float32, launches {rglru_launches}")
 
+    walls.mark("paths A-D")
+    # path E: the climate step as a @program, one generated kernel per fused group:
+    # 10 calls, then iterate(10) from the same start
+    fe_calls, fe_iter = make_fields(arrays, "cuda"), make_fields(arrays, "cuda")
+    torch.cuda.synchronize()
+    codegen_cuda.reset_launch_counts()
+    start.record()
+    for _ in range(NSTEPS):
+        prog(**fe_calls, **scalars)
+    end.record()
+    torch.cuda.synchronize()
+    prog_ms = start.elapsed_time(end) / NSTEPS
+    start.record()
+    prog.iterate(NSTEPS, **fe_iter, **scalars)
+    end.record()
+    torch.cuda.synchronize()
+    iter_ms = start.elapsed_time(end) / NSTEPS
+    prog_launches = {group_names[gi]: g.launches for gi, g in enumerate(groups)}
+    if set(prog_launches.values()) != {2 * NSTEPS} or any(cuda_st[n].launches for n in climate_defs):
+        raise AssertionError(f"climate program: launches {prog_launches}, per-stencil "
+                             f"{ {n: cuda_st[n].launches for n in climate_defs} }")
+    only_these_ran("climate program", prog_launches)
+    got = fe_calls["phi"].data
+    if not torch.equal(fe_iter["phi"].data, got):
+        raise AssertionError("climate program: iterate(10) differs from 10 calls")
+    prog_eager_err = float((got - fk["phi"].data).abs().max())
+    prog_t = climate.build_program("torch", DOMAIN, stencils=torch_st, name="climate_step_torch")
+    ft = make_fields(arrays, "torch")
+    for _ in range(NSTEPS):
+        prog_t(**ft, **scalars)
+    torch.cuda.synchronize()
+    prog_torch_err = float((got - ft["phi"].data).abs().max())
+    log(f"path climate_program: {NSTEPS} calls and iterate({NSTEPS}) at {DOMAIN} float64, groups "
+        f"{prog_cp.report['group_stencils']}, eliminated temporaries {prog_cp.report['eliminated_temporaries']}, "
+        f"launches {prog_launches} (the five per-stencil kernels: none)")
+    log(f"climate_program: max deviation from path B's eager step {prog_eager_err:.3e}, from the torch backend's "
+        f"program {prog_torch_err:.3e} (max |phi| {scale:.3e}, rtol 1e-10); iterate({NSTEPS}) == {NSTEPS} calls "
+        f"bit for bit; {prog_ms:.4f} ms per call, {iter_ms:.4f} ms per iterated step (CUDA events); card {card}")
+    for other in (fk["phi"].data, ft["phi"].data):
+        if not (torch.isfinite(got).all() and torch.allclose(got, other, rtol=1e-10, atol=1e-10 * scale)):
+            raise AssertionError("climate program: differs from the eager step or from the torch program")
+    del ft, prog_t
+
+    walls.mark("path E")
+    # path F: Ensemble(climate_step, 21).iterate(10): phi perturbed (member 0 the
+    # control), u, v and w shared, one launch per group and step for all members
+    base = make_fields(arrays, "cuda")
+    ef = {n: (perturb(base["phi"], MEMBERS, seed=0, amplitude=1e-3, perturb_member0=False) if n == "phi"
+              else base[n] if n in shared_names
+              else batch.zeros(MEMBERS, full_shape, backend="cuda", default_origin=(H, H, 0)))
+          for n in names}
+    if not torch.equal(ef["phi"].data[0], base["phi"].data):
+        raise AssertionError("ensemble: the control member is perturbed")
+    init = {m: ef["phi"].data[m].clone() for m in ENS_RERUN}
+    ens_gb = sum(f.data.numel() * 8 for n, f in ef.items() if n not in shared_names) / 1e9
+    torch.cuda.synchronize()
+    codegen_cuda.reset_launch_counts()
+    start.record()
+    ens.iterate(NSTEPS, **ef, **scalars)
+    end.record()
+    torch.cuda.synchronize()
+    ens_ms = start.elapsed_time(end) / NSTEPS
+    ens_launches = {group_names[gi]: r.kernel.launches for gi, r in enumerate(ens_runs)}
+    if set(ens_launches.values()) != {NSTEPS}:
+        raise AssertionError(f"ensemble: launches {ens_launches}, expected {NSTEPS} a group")
+    only_these_ran("ensemble", ens_launches)
+    ens_scratch_gb = sum(r.kernel.scratch_bytes(DOMAIN, MEMBERS) for r in ens_runs) / 1e9
+    if not torch.isfinite(ef["phi"].data).all():
+        raise AssertionError("ensemble: non-finite members")
+    for m in ENS_RERUN:  # each member alone through the one-member program
+        one = make_fields(arrays, "cuda")
+        one["phi"].data.copy_(init[m])
+        prog.iterate(NSTEPS, **one, **scalars)
+        torch.cuda.synchronize()
+        if not torch.equal(one["phi"].data, ef["phi"].data[m]):
+            err = float((one["phi"].data - ef["phi"].data[m]).abs().max())
+            raise AssertionError(f"ensemble member {m}: differs from the member run alone by {err:.3e}")
+    if not torch.equal(ef["phi"].data[0], fe_iter["phi"].data):
+        raise AssertionError("ensemble: the control member differs from path E")
+    spread = float((ef["phi"].data - ef["phi"].data[0]).abs().max())
+    log(f"path ensemble: Ensemble(climate_step, {MEMBERS}).iterate({NSTEPS}) at {DOMAIN} float64, shared "
+        f"{list(shared_names)}, launches {ens_launches} (one a group and step for all {MEMBERS} members); "
+        f"batched fields {ens_gb:.2f} GB, member-batched scratch {ens_scratch_gb:.2f} GB")
+    log(f"ensemble: members {list(ENS_RERUN)} rerun alone through the one-member program: bit-identical; "
+        f"the control member equals path E bit for bit; max |member - control| {spread:.3e}; "
+        f"{ens_ms:.4f} ms per step, {ens_ms / MEMBERS:.4f} ms per member-step (CUDA events), against "
+        f"{iter_ms:.4f} ms for the one-member step; card {card}")
+    # the 21-member statistics: one launch, against the same reductions in torch
+    codegen_cuda.reset_launch_counts()
+    stats_out = ens_stats(ef["phi"], threshold=0.5)
+    torch.cuda.synchronize()
+    stats_launches = ens_stats.stencil.launches
+    if stats_launches != 1:
+        raise AssertionError(f"ensemble statistics: {stats_launches} launches")
+    only_these_ran("ensemble statistics", {"stats": stats_launches})
+    xm = ef["phi"].data
+    oracle = {"mean": xm.mean(0), "var": xm.var(0, unbiased=False), "spread": xm.var(0, unbiased=False).sqrt(),
+              "mn": xm.amin(0), "mx": xm.amax(0), "prob": (xm > 0.5).double().mean(0)}
+    stats_err = max(float((stats_out[n].data - oracle[n]).abs().max()) for n in oracle)
+    log(f"path ensemble statistics: {MEMBERS} members at {full_shape} float64 (halo included), launches "
+        f"{stats_launches}; max_abs_err {stats_err:.3e} against torch's reductions (atol 1e-12)")
+    if not stats_err <= 1e-12:
+        raise AssertionError(f"ensemble statistics differ from torch's reductions by {stats_err:.3e}")
+    del oracle, base, one
+
+    walls.mark("path F")
     # ---------------------------------------------------------------- 5. times
-    def bound(st, domain):
+    def bound(st, domain, members=1, shared=()):
         """(bytes, flops) this call needs: each input region read once, each
-        output written once; arithmetic nodes over each stage's region."""
+        output written once; arithmetic nodes over each stage's region; a
+        member-batched call reads and writes each member's fields, the
+        ``shared`` ones once."""
         impl = st.implementation_ir
         ni, nj, nk = domain
         isz = {f.name: np.dtype(f.dtype).itemsize for f in impl.api_fields}
@@ -675,9 +909,10 @@ def main() -> int:
         for n, lv in read_lv.items():
             info = st.field_info[n]
             (ilo, jlo, _), (ihi, jhi, _) = info.halo_lo, info.halo_hi
-            nbytes += (ni + ilo + ihi) * (nj + jlo + jhi) * len(lv) * isz[n]
+            nbytes += (ni + ilo + ihi) * (nj + jlo + jhi) * len(lv) * isz[n] * (1 if n in shared else members)
         for n, lv in write_lv.items():
-            nbytes += ni * nj * len(lv) * isz[n]
+            nbytes += ni * nj * len(lv) * isz[n] * members
+        flops *= members
         dtype = impl.api_fields[0].dtype
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -758,6 +993,70 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib[0] if lib else None,
             "ms_c_order": by_layout["c_order"], "ms_no_prefetch": ms_sync,
         })
+    # the climate program's group kernels (path E) and their member-batched
+    # variants (path F), arguments prepared once; the program step, the ensemble
+    log(f"time climate step {DOMAIN} float64: program {prog_ms:.4f} ms per call ({len(groups)} launches), "
+        f"{iter_ms:.4f} ms per iterated step, against the eager step's {step_ms:.4f} ms (5 launches) -- {card}")
+    for gi, obj in enumerate(groups):
+        origins = {n: (H, H, 0) for n in obj.field_info}
+        fields = group_fields(obj)
+        ms = cuda_ms(obj.kernel.prepare(fields, prog_scalars, DOMAIN, origins), iters=50)
+        plain_ms = cuda_ms(lambda: obj._run(fields, prog_scalars, DOMAIN, origins), iters=3)
+        bound_ms, bound_by, nbytes, flops = bound(obj, DOMAIN)
+        scratch = obj.kernel.scratch_bytes(DOMAIN)
+        temps = obj.kernel.module.SCHEDULE["temporaries"]
+        log(f"time program group {gi} [{group_names[gi]}] {DOMAIN} float64: kernel {ms:.4f} ms, plain torch "
+            f"{plain_ms:.4f} ms, no single PyTorch call, bound {bound_ms:.4f} ms ({bound_by}: API fields "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} Mflop); full-scratch temporaries "
+            f"{scratch / 1e6:.1f} MB written and read back -- {card}")
+        log(f"schedule program group {gi} [{group_names[gi]}]: temporaries {temps}; staged "
+            f"{obj.kernel.module.SCHEDULE['staged_inputs']}")
+        report.append({
+            "name": f"climate_program.{group_names[gi]}", "route": "cuda",
+            "source": "src/repro_torch/core/codegen_cuda.py", "replaces": "src/repro/core/codegen_pallas.py:123",
+            "launches": prog_launches[group_names[gi]], "max_abs_err": group_err[gi], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "scratch_bytes": scratch, "full_temporaries": sorted(n for n, k in temps.items() if k == "full"),
+        })
+        del fields
+        fields = group_fields(obj, MEMBERS)
+        ms_m = cuda_ms(ens_runs[gi].kernel.prepare(fields, prog_scalars, DOMAIN, origins, members=MEMBERS),
+                       iters=5)
+        plain_m = member_plain_ms[gi]
+        bound_m, by_m, nbytes_m, flops_m = bound(obj, DOMAIN, MEMBERS, shared_names)
+        scratch_m = ens_runs[gi].kernel.scratch_bytes(DOMAIN, MEMBERS)
+        log(f"time member-batched group {gi} [{group_names[gi]}] {MEMBERS} x {DOMAIN} float64: kernel {ms_m:.4f} ms "
+            f"({ms_m / MEMBERS:.4f} ms a member, against {ms:.4f} ms for one member alone), plain torch member by "
+            f"member {plain_m:.4f} ms, bound {bound_m:.4f} ms ({by_m}: {nbytes_m / 1e6:.1f} MB); full-scratch "
+            f"temporaries {scratch_m / 1e9:.2f} GB -- {card}")
+        report.append({
+            "name": f"climate_ensemble.{group_names[gi]}", "route": "cuda",
+            "source": "src/repro_torch/core/codegen_cuda.py", "replaces": "src/repro/core/codegen_pallas.py:123",
+            "launches": ens_launches[group_names[gi]], "max_abs_err": member_err[gi], "ms": ms_m,
+            "plain_ms": plain_m, "bound_ms": bound_m, "bound_by": by_m, "library_ms": None,
+            "members": MEMBERS, "scratch_bytes": scratch_m,
+        })
+        del fields
+    log(f"time ensemble {MEMBERS} members {DOMAIN} float64: {ens_ms:.4f} ms per step "
+        f"({ens_ms / MEMBERS:.4f} ms per member-step) against the one-member program's {iter_ms:.4f} ms per "
+        f"step ({ens_ms / MEMBERS / iter_ms:.3f}x) -- {card}")
+    st_fields = {f"m{i}": ef["phi"].data[i] for i in range(MEMBERS)}
+    st_fields.update({n: t.data for n, t in stats_out.items()})
+    st_origins = {n: (0, 0, 0) for n in st_fields}
+    thr = {"threshold": 0.5}
+    stats_ms = cuda_ms(ens_stats.stencil.kernel.prepare(st_fields, thr, full_shape, st_origins), iters=20)
+    stats_plain = cuda_ms(lambda: ens_stats.stencil._run(st_fields, thr, full_shape, st_origins), iters=3)
+    stats_bound, stats_by, stats_bytes, _ = bound(ens_stats.stencil, full_shape)
+    log(f"time ensemble statistics {MEMBERS} members {full_shape} float64: kernel {stats_ms:.4f} ms, plain torch "
+        f"{stats_plain:.4f} ms, no single PyTorch call, bound {stats_bound:.4f} ms ({stats_by}: "
+        f"{stats_bytes / 1e6:.1f} MB) -- {card}")
+    report.append({
+        "name": "ensemble_stats", "route": "cuda", "source": "src/repro_torch/core/codegen_cuda.py",
+        "replaces": "src/repro/core/codegen_pallas.py:123", "launches": stats_launches, "max_abs_err": stats_err,
+        "ms": stats_ms, "plain_ms": stats_plain, "bound_ms": stats_bound, "bound_by": stats_by,
+        "library_ms": None, "members": MEMBERS,
+    })
+    del ef, st_fields, stats_out, xm
     # the user-facing entry points, end to end: argument checks, hdiff's seeding
     # copy of its input, vadv's scratch, and the launch
     def card_copy(t):
@@ -871,6 +1170,8 @@ def main() -> int:
         "bound_ms": rglru_bound, "bound_by": rglru_by, "library_ms": None,
         "ms_bfloat16": rglru_bf16_ms, "bound_ms_bfloat16": rglru_bf16_bound,
     })
+    walls.mark("times")
+    log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ The port keeps its own cache directory (``REPRO_TORCH_GT_CACHE``, default
 IR, backend and options, and both packages' modules may live in one process.
 The ``cuda`` backend's fingerprint also carries ``codegen_cuda.CODEGEN_VERSION``
 so that a change to the kernel generator rebuilds the shared libraries.
+Programs (``program_fingerprint``) and member-batched kernels
+(``member_fingerprint``) are keyed on top of their stencils' fingerprints.
 """
 
 from __future__ import annotations
@@ -73,6 +75,41 @@ def fingerprint(
             repr(sorted((options or {}).items())),
             repr(sorted((pass_config or {}).items())),
             repr(passes.PASS_NAMES),
+        ]
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def member_fingerprint(fp: str, member_scalars) -> str:
+    """The fingerprint of a stencil's member-batched kernel: the stencil's own
+    fingerprint and which of its scalars take one value a member."""
+    payload = "|".join([fp, "members", repr(tuple(sorted(member_scalars)))])
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def program_fingerprint(
+    name: str,
+    graph_repr: str,
+    part_fingerprints,
+    backend: str,
+    options: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Cache key for a compiled *program* (``repro_torch.program``).
+
+    Keyed on the structural dataflow-graph hash plus the fingerprints of the
+    constituent (merged) stencils — so a program re-generates exactly when
+    one of its stencils, the graph wiring, or the orchestration options
+    change, and never when the step function is merely reformatted (the
+    graph repr is built from IR-level facts, not source text)."""
+    payload = "|".join(
+        [
+            _CACHE_VERSION,
+            "program",
+            name,
+            backend,
+            hashlib.sha256(graph_repr.encode()).hexdigest(),
+            repr(tuple(part_fingerprints)),
+            repr(sorted((options or {}).items())),
         ]
     )
     return hashlib.sha256(payload.encode()).hexdigest()[:16]

@@ -646,21 +646,32 @@ def _close_region_loop(em: Emitter) -> None:
     em.line("__syncthreads();")
 
 
-def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True):
+def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True,
+              member_scalars: Optional[Tuple[str, ...]] = None):
     plan = _Plan(impl, block, async_staging)
     pr = _CPrinter(plan)
     kname = _cname(impl.name)
     float_dt = next((f.dtype for f in impl.api_fields if f.dtype.startswith("float")), "float64")
+    # the member grid axis: blockIdx.z is the ensemble member
+    members = member_scalars is not None
+    unknown = set(member_scalars or ()) - {s.name for s in impl.scalars}
+    if unknown:
+        raise ValueError(f"cuda backend: per-member scalars {sorted(unknown)} are no scalars of {impl.name!r}")
 
     params: List[str] = []
     for f in impl.api_fields:
         ct = _ctype(f.dtype)
         params.append(f"{ct}* f_{f.name}")
         params += [f"long long st_{f.name}_{d}" for d in range(len(f.axes))]
+        if members:
+            params.append(f"long long sm_{f.name}")  # member stride: 0 for a shared field
         params += [f"int oi_{f.name}", f"int oj_{f.name}", f"int ok_{f.name}"]
     params += ["int ni", "int nj", "int nk"]
     for s in impl.scalars:
-        params.append(f"{_ctype(s.dtype)} s_{s.name}")
+        if members and s.name in member_scalars:
+            params.append(f"const {_ctype(s.dtype)}* sv_{s.name}")  # one value a member, on the card
+        else:
+            params.append(f"{_ctype(s.dtype)} s_{s.name}")
     for t in plan.full_temps():
         params.append(f"{t.ctype}* sc_{t.name}")
     call_args = [p.split()[-1] for p in params]
@@ -680,6 +691,9 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     em.line(f"#define BJ {plan.bj}")
     em.line("#define NT (BI * BJ)")
     em.line(f"#define SMEM_BYTES {plan.smem_bytes}")
+    if members:
+        em.line("// member grid axis: blockIdx.z is the ensemble member; each field moves by its")
+        em.line("// member stride (0 for a field the members share), scratch by a member's blocks")
     for ln in _PRELUDE.strip("\n").splitlines():
         em.line(ln)
     em.line()
@@ -734,10 +748,19 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
             em.line(f"{ct}* ss_{n}_{_dk_tag(int(dk))} = reinterpret_cast<{ct}*>(smem + {off});")
         else:
             em.line(f"{plan.temps[key].ctype}* sp_{key} = reinterpret_cast<{plan.temps[key].ctype}*>(smem + {off});")
+    if members:
+        for f in impl.api_fields:
+            em.line(f"f_{f.name} += (long long)blockIdx.z * sm_{f.name};")
+        for s in impl.scalars:
+            if s.name in member_scalars:
+                em.line(f"const {_ctype(s.dtype)} s_{s.name} = sv_{s.name}[blockIdx.z];")
     em.line("const int tid = threadIdx.y * BJ + threadIdx.x;")
     em.line("const int i0 = blockIdx.y * BI, j0 = blockIdx.x * BJ;")
     em.line("const int ti = min(BI, ni - i0), tj = min(BJ, nj - j0);")
-    em.line("const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;")
+    if members:
+        em.line("const long long blk = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;")
+    else:
+        em.line("const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;")
     em.line("(void)blk; (void)nk;")
     full = plan.full_temps()
     for t in full:
@@ -844,10 +867,13 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     em.line("}")
     em.line()
 
-    em.line(f"extern \"C\" int launch_{kname}({', '.join(params + ['void* stream'])}) {{")
+    em.line(f"extern \"C\" int launch_{kname}({', '.join(params + (['int nm'] if members else []) + ['void* stream'])}) {{")
     em.push()
     em.line("const dim3 block(BJ, BI);")
-    em.line("const dim3 grid((nj + BJ - 1) / BJ, (ni + BI - 1) / BI);")
+    if members:
+        em.line("const dim3 grid((nj + BJ - 1) / BJ, (ni + BI - 1) / BI, nm);")
+    else:
+        em.line("const dim3 grid((nj + BJ - 1) / BJ, (ni + BI - 1) / BI);")
     em.line(f"if (SMEM_BYTES > {SMEM_DEFAULT_LIMIT}) {{")
     em.push()
     em.line(f"cudaError_t e = cudaFuncSetAttribute(k_{kname}, "
@@ -901,15 +927,24 @@ def _plane_elems(plan: _Plan, t: _Temp) -> int:
 
 
 def generate_cuda_module_source(
-    impl: ir.StencilImplementation, block: Tuple[int, int] = DEFAULT_BLOCK, async_staging: bool = True
+    impl: ir.StencilImplementation,
+    block: Tuple[int, int] = DEFAULT_BLOCK,
+    async_staging: bool = True,
+    member_scalars: Optional[Tuple[str, ...]] = None,
 ) -> str:
     """The Python module of a ``cuda`` stencil: the CUDA source and the
     metadata the launcher and the autotuner read.  The staged input planes
     are double-buffered and the next one is filled by ``cp.async`` while the
     current one computes; ``async_staging=False`` stages them with plain
     loads instead, a kernel that exists only so that ``chip_smoke.py`` can
-    time the prefetch against it (no stencil option reaches it)."""
-    source, plan = _generate(impl, block, async_staging)
+    time the prefetch against it (no stencil option reaches it).
+
+    ``member_scalars`` (a tuple, possibly empty) generates the member-batched
+    kernel an ensemble launches once for all its members: a third grid axis
+    over the members, a member stride for every field (0 for a shared one),
+    and the named scalars read per member from a device array.  ``None``, the
+    default, is the one-member kernel, whose source does not change."""
+    source, plan = _generate(impl, block, async_staging, member_scalars)
     if "'''" in source:
         raise AssertionError("generated CUDA source may not contain triple quotes")
     schedule = _schedule(impl, plan.carry)
@@ -936,6 +971,8 @@ def generate_cuda_module_source(
     em.line(f"FIELDS = {fields!r}")
     em.line(f"SCALARS = {[(s.name, s.dtype) for s in impl.scalars]!r}")
     em.line(f"SCRATCH = {[(t.name, impl.field(t.name).dtype, t.rows_extra, t.cols_extra, t.k_lo + t.k_hi) for t in plan.full_temps()]!r}")
+    if member_scalars is not None:
+        em.line(f"MEMBER_SCALARS = {tuple(member_scalars)!r}")
     em.line()
     em.line("def _smem_bytes(bi, bj):")
     em.push()
@@ -1054,17 +1091,27 @@ class CudaKernel:
     def finish_build(self) -> None:
         self.library.finish_build()
 
+    @property
+    def member_scalars(self) -> Optional[Tuple[str, ...]]:
+        """The per-member scalars of a member-batched kernel; None for the
+        one-member kernel."""
+        return getattr(self.module, "MEMBER_SCALARS", None)
+
     def _load(self):
         if self._fn is None:
             fn = getattr(self.library.load(), self.module.KERNEL)
+            batched = self.member_scalars is not None
             argtypes: List[Any] = []
             for _name, axes, *_ in self.module.FIELDS:
                 argtypes.append(ctypes.c_void_p)
-                argtypes += [ctypes.c_longlong] * len(axes)
+                argtypes += [ctypes.c_longlong] * (len(axes) + batched)
                 argtypes += [ctypes.c_int] * 3
             argtypes += [ctypes.c_int] * 3
-            argtypes += [_CT_ARG[dt] for _n, dt in self.module.SCALARS]
+            argtypes += [ctypes.c_void_p if batched and n in self.member_scalars else _CT_ARG[dt]
+                         for n, dt in self.module.SCALARS]
             argtypes += [ctypes.c_void_p] * len(self.module.SCRATCH)
+            if batched:
+                argtypes.append(ctypes.c_int)
             argtypes.append(ctypes.c_void_p)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -1076,9 +1123,22 @@ class CudaKernel:
     def launch(self, fields, scalars, domain, origins) -> None:
         self.prepare(fields, scalars, domain, origins)()
 
-    def prepare(self, fields, scalars, domain, origins):
-        """Check the arguments, allocate the scratch and return a callable
-        that launches the kernel on them (each call is one launch)."""
+    def prepare(self, fields, scalars, domain, origins, members: Optional[int] = None,
+                scratch_sets: Optional[Dict[Any, list]] = None):
+        """Check the arguments, bind the scratch and return a callable that
+        launches the kernel on them (each call is one launch).
+
+        The launcher allocates its own scratch and holds it, unless the caller
+        passes ``scratch_sets``: launchers prepared with one such dict share a
+        set per (device, stream, size), which lives as long as the dict.
+        Launches on one stream run in order, and each launch writes what it
+        reads of the scratch first, so sharing is safe.
+
+        A member-batched kernel takes ``members``: a field is then either
+        batched, with a leading member axis of that length, or shared, without
+        it (member stride 0; an output may not be shared), and each per-member
+        scalar is a sequence of ``members`` values.  The one launch covers
+        every member and counts once."""
         import torch
 
         if self.module.SMEM_BYTES > SMEM_MAX:
@@ -1086,6 +1146,13 @@ class CudaKernel:
                 f"cuda backend: {self.key} needs {self.module.SMEM_BYTES} bytes of shared memory "
                 f"per block, more than the {SMEM_MAX} a block may have; pick a smaller block="
             )
+        per_member = self.member_scalars
+        if (per_member is None) != (members is None):
+            raise TypeError(f"cuda backend: {self.key} is {'not ' if per_member is None else ''}member-batched; "
+                            f"members={members!r}")
+        nm = 1 if members is None else int(members)
+        if nm < 1:
+            raise ValueError(f"cuda backend: members must be positive, got {members}")
         ni, nj, nk = (int(d) for d in domain)
         device = None
         args: List[Any] = []
@@ -1099,6 +1166,16 @@ class CudaKernel:
                 raise ValueError(f"cuda backend: field {name!r} is on {t.device}, others on {device}")
             if t.dtype != getattr(torch, dt):
                 raise TypeError(f"cuda backend: field {name!r} expects {dt}, got {t.dtype}")
+            member_stride = 0
+            if members is not None and t.dim() == len(axes) + 1:
+                if t.shape[0] != nm:
+                    raise ValueError(f"cuda backend: field {name!r} holds {t.shape[0]} members, not {nm}")
+                member_stride = t.stride(0) if nm > 1 else 0
+                if written and nm > 1 and member_stride == 0:
+                    raise ValueError(f"cuda backend: output {name!r} has overlapping members (a stride of 0)")
+                t = t[0]  # one member's (I, J, K) view: its shape and strides are every member's
+            elif members is not None and written:
+                raise ValueError(f"cuda backend: output {name!r} is shared by the members (no member axis)")
             if t.dim() != len(axes):
                 raise ValueError(f"cuda backend: field {name!r} has {t.dim()} dims, expects {len(axes)}")
             # the kernel indexes without bounds checks: the region it touches must exist
@@ -1115,23 +1192,37 @@ class CudaKernel:
                 raise ValueError(f"cuda backend: output {name!r} has overlapping elements (a stride of 0)")
             args.append(ctypes.c_void_p(t.data_ptr()))
             args += [ctypes.c_longlong(s) for s in t.stride()]
+            if members is not None:
+                args.append(ctypes.c_longlong(member_stride))
             args += [ctypes.c_int(int(o)) for o in origins[name]]
         args += [ctypes.c_int(ni), ctypes.c_int(nj), ctypes.c_int(nk)]
+        keep = []  # device copies of the per-member scalars, alive as long as the launcher
         for name, dt in self.module.SCALARS:
             v = scalars[name]
+            if per_member is not None and name in per_member:
+                vals = torch.as_tensor([float(x) for x in v], dtype=getattr(torch, dt)).to(device)
+                if vals.numel() != nm:
+                    raise ValueError(f"cuda backend: per-member scalar {name!r} has {vals.numel()} values, not {nm}")
+                keep.append(vals)
+                args.append(ctypes.c_void_p(vals.data_ptr()))
+                continue
             v = v.item() if hasattr(v, "item") else v
             args.append(_CT_ARG[dt](v))
         bi, bj = self.module.BLOCK
-        nblocks = -(-ni // bi) * -(-nj // bj)
-        scratch = []
-        for _name, dt, er, ec, ek in self.module.SCRATCH:
-            # the kernel zeroes what it may read before writing
-            buf = torch.empty(nblocks * (bi + er) * (bj + ec) * (nk + ek),
-                              dtype=getattr(torch, dt), device=device)
-            scratch.append(buf)
-            args.append(ctypes.c_void_p(buf.data_ptr()))
-        fn = self._load()
+        nblocks = -(-ni // bi) * -(-nj // bj) * nm
         stream = torch.cuda.current_stream(device)
+        key = (str(device), stream.cuda_stream, nblocks, nk)
+        scratch = None if scratch_sets is None else scratch_sets.get(key)
+        if scratch is None:
+            # the kernel zeroes what it may read before writing
+            scratch = [torch.empty(numel, dtype=getattr(torch, dt), device=device)
+                       for numel, dt in self._scratch_sizes(nblocks, nk)]
+            if scratch_sets is not None:
+                scratch_sets[key] = scratch
+        args += [ctypes.c_void_p(buf.data_ptr()) for buf in scratch]
+        if members is not None:
+            args.append(ctypes.c_int(nm))
+        fn = self._load()
         args.append(ctypes.c_void_p(stream.cuda_stream))
 
         def _launch() -> None:
@@ -1143,4 +1234,66 @@ class CudaKernel:
             self.launches += 1
 
         _launch.scratch = scratch  # the buffers live as long as the launcher
+        _launch.keep = keep
         return _launch
+
+    def _scratch_sizes(self, nblocks: int, nk: int) -> List[Tuple[int, str]]:
+        """(elements, dtype) of each full temporary's per-block scratch for
+        ``nblocks`` blocks of ``nk`` levels."""
+        bi, bj = self.module.BLOCK
+        return [(nblocks * (bi + er) * (bj + ec) * (nk + ek), dt) for _name, dt, er, ec, ek in self.module.SCRATCH]
+
+    def scratch_bytes(self, domain, members: int = 1) -> int:
+        """Bytes of per-block scratch one launch over ``domain`` writes."""
+        ni, nj, nk = (int(d) for d in domain)
+        bi, bj = self.module.BLOCK
+        nblocks = -(-ni // bi) * -(-nj // bj) * int(members)
+        return sum(numel * np.dtype(dt).itemsize for numel, dt in self._scratch_sizes(nblocks, nk))
+
+
+class PreparedLaunches:
+    """Launch one kernel through launchers prepared once per tensor binding.
+
+    A call with the same tensors (pointers, shapes, strides), scalars, domain
+    and origins on the same stream reuses the launcher that ``prepare`` made
+    the first time: no argument checks, no scratch allocation.  A double-
+    buffer rotation alternates between two bindings; at most ``CAPACITY``
+    bindings are kept, the oldest dropped first.  The bindings share one
+    scratch set per (device, stream, size), freed with this object.
+    """
+
+    CAPACITY = 8
+
+    def __init__(self, kernel: CudaKernel, members: Optional[int] = None):
+        self.kernel = kernel
+        self.members = members
+        self._launchers: Dict[Any, Any] = {}
+        self._scratch_sets: Dict[Any, list] = {}
+
+    def _key(self, fields, scalars, domain, origins):
+        import torch
+
+        parts = []
+        device = None
+        for name, *_ in self.kernel.module.FIELDS:
+            t = fields[name]
+            device = t.device
+            parts.append((t.data_ptr(), tuple(t.shape), t.stride(), tuple(origins[name])))
+        per_member = self.kernel.member_scalars or ()
+        vals = []
+        for name, _dt in self.kernel.module.SCALARS:
+            v = scalars[name]
+            vals.append(tuple(float(x) for x in v) if name in per_member else (v.item() if hasattr(v, "item") else v))
+        stream = torch.cuda.current_stream(device).cuda_stream if device is not None else None
+        return (str(device), stream, tuple(domain), tuple(parts), tuple(vals))
+
+    def __call__(self, fields, scalars, domain, origins) -> None:
+        key = self._key(fields, scalars, domain, origins)
+        launch = self._launchers.get(key)
+        if launch is None:
+            launch = self.kernel.prepare(fields, scalars, domain, origins, members=self.members,
+                                         scratch_sets=self._scratch_sets)
+            if len(self._launchers) >= self.CAPACITY:
+                self._launchers.pop(next(iter(self._launchers)))
+            self._launchers[key] = launch
+        launch()

@@ -35,6 +35,20 @@ _AXIS_INDEX = {"I": 0, "J": 1, "K": 2}
 # explicit ``tile=None`` (tiling off) in backend_opts
 _TILE_UNSET = object()
 
+# Orchestration-tracing hook (installed by ``repro_torch.program.trace``):
+# called at the top of ``StencilObject.__call__`` so a ``@program`` tracer can
+# intercept calls made on traced field handles and record a dataflow node
+# instead of executing.  Returning :data:`NOT_TRACED` means "not tracing — run
+# eagerly".
+NOT_TRACED = object()
+_trace_hook = None
+
+
+def set_trace_hook(hook) -> None:
+    """Install (or clear, with ``None``) the program-tracer call hook."""
+    global _trace_hook
+    _trace_hook = hook
+
 
 class FieldInfo:
     def __init__(self, decl: ir.FieldDecl, extent: ir.Extent, k_extent: Tuple[int, int]):
@@ -102,6 +116,7 @@ class StencilObject:
         }
         self.scalar_info = {s.name: np.dtype(s.dtype) for s in impl.scalars}
         self._field_order = [f.name for f in impl.api_fields]
+        self._member_kernels: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def launches(self) -> int:
@@ -112,6 +127,26 @@ class StencilObject:
     def launches(self, value: int) -> None:
         if self.kernel is not None:
             self.kernel.launches = int(value)
+
+    def member_kernel(self, member_scalars=()):
+        """The member-batched variant of this ``cuda`` stencil's kernel: one
+        launch runs every member of an ensemble, ``blockIdx.z`` the member
+        (``codegen_cuda.generate_cuda_module_source(member_scalars=...)``).
+        ``member_scalars`` names the scalars that take one value a member;
+        they are part of the kernel's source and of its fingerprint."""
+        if self.backend != "cuda":
+            raise TypeError(f"member_kernel() needs the cuda backend, not {self.backend!r}")
+        key = tuple(sorted(member_scalars))
+        kernel = self._member_kernels.get(key)
+        if kernel is None:
+            from .codegen_cuda import CudaKernel, generate_cuda_module_source
+
+            fp = caching.member_fingerprint(self.fingerprint, key)
+            source = generate_cuda_module_source(self.implementation_ir, self._module.BLOCK, member_scalars=key)
+            module = caching.load_generated_module(self.name, fp, source)
+            kernel = CudaKernel(module, caching.module_key(self.name, fp), caching.cache_dir())
+            self._member_kernels[key] = kernel
+        return kernel
 
     # ------------------------------------------------------------------ binding
 
@@ -252,6 +287,10 @@ class StencilObject:
         exec_info: Optional[dict] = None,
         **kwargs,
     ):
+        if _trace_hook is not None:
+            traced = _trace_hook(self, args, kwargs, domain=domain, origin=origin)
+            if traced is not NOT_TRACED:
+                return traced
         if exec_info is not None:
             exec_info["call_start_time"] = time.perf_counter()
             exec_info["pass_report"] = list(self.pass_report)

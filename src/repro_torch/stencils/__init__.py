@@ -1,12 +1,12 @@
 """Stencil application library, written in the GTScript DSL.
 
 The paper's two evaluation motifs (horizontal diffusion with flux limiter,
-implicit vertical advection), the column integrals, the forecast step's
-stencils, and a library of reusable operators.  Nothing here needs the
-``@program`` layer, which is not ported yet.
+implicit vertical advection), the column integrals, the forecast step and
+the climate step (each also as a ``@program``), and a library of reusable
+operators.
 """
 
-from . import forecast, hdiff, library, vadv, vintg
+from . import climate, forecast, hdiff, library, vadv, vintg
 from .hdiff import build_hdiff, hdiff_defs
 from .library import (
     avg_x,
@@ -20,6 +20,7 @@ from .vadv import build_vadv, vadv_defs
 
 __all__ = [
     "library",
+    "climate",
     "forecast",
     "hdiff",
     "vadv",

@@ -350,3 +350,147 @@ def test_rglru_kernel_matches_plain_on_the_card(card, b, s, d, dtype):
 def test_rglru_kernel_zero_decay_is_identity(card, shape, dtype):
     x = _normal(shape, 9, card, dtype)
     assert torch.equal(rglru_ops.rglru_scan(torch.zeros_like(x), x), x)
+
+
+# ---------------------------------------------------------------------------
+# @program fusion and ensembles: one generated kernel per fused group, and its
+# member grid axis
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import codegen_cuda, storage  # noqa: E402
+from repro_torch.ensemble import Ensemble, EnsembleStatistics, batch, normal_noise, uniform_noise  # noqa: E402
+from repro_torch.stencils import climate  # noqa: E402
+
+_CDOM = (40, 36, 12)  # ragged against the (8, 32) blocks
+
+
+def _climate_fields(device, seed=7):
+    ni, nj, nk = _CDOM
+    shape = (ni + 2 * climate.HALO, nj + 2 * climate.HALO, nk)
+    rng = np.random.default_rng(seed)
+    arrays = {n: np.zeros(shape) for n in climate.FIELD_NAMES}
+    arrays["phi"] = rng.normal(size=shape)
+    arrays["u"] = np.full(shape, 0.8)
+    arrays["v"] = np.full(shape, -0.4)
+    arrays["w"] = 0.2 * rng.random(shape)
+    return {n: storage.from_array(a, backend="cuda", default_origin=(climate.HALO, climate.HALO, 0), device=device)
+            for n, a in arrays.items()}
+
+
+def test_climate_program_two_launches_a_step_and_matches_eager(card):
+    st = climate.build_stencils("cuda")
+    prog = climate.build_program("cuda", _CDOM, stencils=st, name="gpu_climate_step")
+    sc = climate.DEFAULT_SCALARS
+    fp, fe = _climate_fields(card), _climate_fields(card)
+    prog(**fp, **sc)
+    climate.eager_step(st, fe, _CDOM, sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fp["phi"].data, fe["phi"].data, rtol=1e-12, atol=1e-12)
+    cp = next(iter(prog._cache.values()))
+    assert cp.report["group_stencils"] == [["advect_defs", "euler_defs"],
+                                           ["diffuse_defs", "vadv_system_defs", "vadv_defs"]]
+    # the plain modules never run on CUDA tensors
+    for obj in cp.group_objects:
+        obj._run = None
+    codegen_cuda.reset_launch_counts()
+    prog.iterate(4, **fp, **sc)
+    for _ in range(5):
+        prog(**fp, **sc)
+    for _ in range(9):
+        climate.eager_step(st, fe, _CDOM, sc)
+    torch.cuda.synchronize()
+    counts = codegen_cuda.launch_counts()
+    assert [counts[k.key] for k in cp.group_kernels] == [9, 9]
+    assert sum(counts.values()) == 18 + 9 * 5  # the eager chain's five kernels a step
+    # a group's bindings share one scratch set, held by its run and not by the kernel
+    for run in cp._group_runs:
+        sets = {tuple(b.data_ptr() for b in launch.scratch) for launch in run.launches._launchers.values()}
+        assert len(sets) == 1 and not hasattr(run.kernel, "_scratch_sets")
+    assert sum(len(s) for s in cp._group_runs[1].launches._scratch_sets.values()) == len(
+        cp.group_kernels[1].module.SCRATCH) > 0
+    scale = float(fe["phi"].data.abs().max())
+    torch.testing.assert_close(fp["phi"].data, fe["phi"].data, rtol=1e-10, atol=1e-10 * scale)
+
+
+def _member_inputs(device, members):
+    rng = np.random.default_rng(11)
+    shape = (_CDOM[0] + 2, _CDOM[1] + 2, _CDOM[2])
+    mk = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {
+        "phi": storage.card_tensor((members,) + shape, torch.float64, device).copy_(mk(rng.normal(size=(members,) + shape))),
+        "u": mk(np.full(shape, 0.8)),  # shared: member stride 0
+        "v": mk(rng.normal(size=shape)),
+        "adv": storage.card_tensor((members,) + shape, torch.float64, device).zero_(),
+        "phi_star": storage.card_tensor((members,) + shape, torch.float64, device).zero_(),
+        "phi_new": storage.card_tensor((members,) + shape, torch.float64, device).zero_(),
+    }
+
+
+def test_member_batched_kernel_bit_identical_to_member_loop(card):
+    from repro_torch.stencils import forecast
+
+    members = 5
+    dts = np.linspace(0.05, 0.2, members)
+    step = forecast.build_forecast_step("cuda", _CDOM, name="gpu_member_step")
+    sc = dict(forecast.DEFAULT_SCALARS)
+    fields = _member_inputs(card, members)
+    ref = {n: t.clone() for n, t in fields.items()}
+    origin = (1, 1, 0)
+    batched = {n: storage.Storage(t, "cuda", (0,) + origin if t.dim() == 4 else origin,
+                                  ("N", "I", "J", "K") if t.dim() == 4 else ("I", "J", "K"))
+               for n, t in fields.items()}
+    ens = Ensemble(step, members)
+    codegen_cuda.reset_launch_counts()
+    ens.iterate(3, **batched, **dict(sc, dt=dts))
+    torch.cuda.synchronize()
+    ce = next(iter(ens._cache.values()))
+    runs = ce.batched_runs({"dt": True})
+    # [advect, euler] reads dt per member; [diffuse] reads no dt
+    assert [r.kernel.member_scalars for r in runs] == [("dt",), ()]
+    assert sum(codegen_cuda.launch_counts().values()) == 3 * len(runs)  # one launch a group and step
+    for m in range(members):
+        one = {n: storage.Storage((t[m] if t.dim() == 4 else t).clone(), "cuda", origin) for n, t in ref.items()}
+        for _ in range(3):
+            step(**one, **dict(sc, dt=float(dts[m])))
+        torch.cuda.synchronize()
+        assert torch.equal(batched["phi"].data[m], one["phi"].data), m
+    assert torch.equal(batched["u"].data, ref["u"])  # the shared field is left as it was
+
+
+def test_member_kernel_refuses_a_shared_or_overlapping_output(card):
+    euler = climate.build_stencils("cuda")["euler"]
+    kernel = euler.member_kernel()
+    f = _member_inputs(card, 3)
+    origins = {n: (1, 1, 0) for n in ("phi", "adv", "out")}
+    with pytest.raises(ValueError, match="shared"):
+        kernel.prepare({"phi": f["phi"], "adv": f["adv"], "out": f["u"]}, {"dt": 0.1}, _CDOM, origins, members=3)
+    with pytest.raises(ValueError, match="overlapping members"):
+        kernel.prepare({"phi": f["phi"], "adv": f["adv"], "out": f["u"].expand(3, *f["u"].shape)}, {"dt": 0.1},
+                       _CDOM, origins, members=3)
+
+
+def test_statistics_kernel_matches_numpy_oracle(card):
+    members = 6
+    rng = np.random.default_rng(3)
+    arrs = [rng.normal(size=(20, 18, 7)) for _ in range(members)]
+    b = batch.from_member_arrays(arrs, backend="cuda", default_origin=(1, 1, 0), device=card)
+    stats = EnsembleStatistics(members, "cuda")
+    stats.stencil.launches = 0
+    out = stats(b, threshold=0.5)
+    torch.cuda.synchronize()
+    assert stats.stencil.launches == 1
+    stack = np.stack(arrs)
+    np.testing.assert_allclose(out["mean"].to_numpy(), stack.mean(0), rtol=1e-13)
+    np.testing.assert_allclose(out["var"].to_numpy(), stack.var(0), rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(out["spread"].to_numpy(), stack.std(0), rtol=1e-12, atol=1e-15)
+    np.testing.assert_array_equal(out["mn"].to_numpy(), stack.min(0))
+    np.testing.assert_array_equal(out["mx"].to_numpy(), stack.max(0))
+    np.testing.assert_allclose(out["prob"].to_numpy(), (stack > 0.5).mean(0), rtol=1e-13)
+
+
+def test_noise_lands_on_the_card_by_default(card):
+    for draw in (normal_noise, uniform_noise):
+        a = draw(5, 3, (6, 4, 2))
+        assert a.is_cuda and a.shape == (3, 6, 4, 2)
+        assert torch.equal(a, draw(5, 5, (6, 4, 2))[:3])  # member m's noise whatever N
+        assert draw(5, 3, (6, 4, 2), device="cpu").device.type == "cpu"
