@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the result line:
    climate step's ``@program`` and its 21-member ``Ensemble`` are compiled
    first on storages of meta tensors, so that their group kernels, the
    groups' member-batched kernels and the 21-member statistics stencil
-   build with the rest;
+   build with the rest; so are path G's two programs, built with
+   ``autotune=True``, and every candidate block of each of their groups
+   (one-member and member-batched: ``core/autotune.py``);
 3. kernel vs plain: each generated kernel against the plain torch backend on
    the same CUDA inputs, float64 and float32, at 256 x 256 x 80 and on a
    ragged domain, on fields in the card layout (``storage``) and in C order;
@@ -52,7 +54,24 @@ Phases, in order; any failure exits non-zero before the result line:
    (member 0 the control), one launch per group and step for all members,
    members 0, 10 and 20 rerun alone through the one-member program bit for
    bit, and the 21-member statistics in one launch against torch's
-   reductions;
+   reductions; then the autotune sweep: every candidate block of the
+   climate program's two groups (and of the forecast step's), timed by the
+   tuner on the card at one member and at 16 members, the picked blocks
+   held against the groups' plain modules (1e-12) at every member count
+   path G serves, and a second build of the program a pure cache hit of
+   the tune store; (G) forecast serving: one ``ServingEngine`` on the card
+   (``window_ms=2``) holding ``climate_step`` and the reference's serving
+   demo ``forecast_step``, both ``autotune=True`` at 256 x 256 x 80
+   float64, member counts (1, 2, 4, 8, 16), warmed at ``chunk=5``; 16
+   climate requests (one 16-member window) and 5 forecast requests (padded
+   to 8) of 10 steps streamed every 5, all submitted at once through
+   ``drive_engine``; every request done with no retry, bisect or error,
+   climate requests 0, 7 and 15 and the last forecast request equal to
+   their runs alone through ``ProgramObject.iterate`` bit for bit;
+   requests/s, p50/p99 latency, windows, dispatches, occupancy, dispatch
+   seconds and their share of the wall, the host copies (scatter, gather),
+   the member-step inside serving against path F's, and the peak of
+   device memory;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -77,6 +96,7 @@ the kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import subprocess
@@ -101,6 +121,11 @@ LM_BF16_REL = 5e-2  # bf16 logits, flash vs chunked: max |diff| <= 5e-2 * max |l
 TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}  # (rtol, atol) kernel vs plain
 MEMBERS = 21  # COSMO-E: 20 perturbed members and the control run
 ENS_RERUN = (0, 10, 20)  # members rerun alone through the one-member program
+SERVE_COUNTS = (1, 2, 4, 8, 16)  # path G: the member counts each served program holds
+SERVE_STEPS, SERVE_EVERY = 10, 5  # steps a request, streamed (and warmed) every 5
+SERVE_CLIMATE, SERVE_FORECAST = 16, 5  # requests: one full 16-member window, and 5 padded to 8
+SERVE_ALONE = (0, 7, 15)  # climate requests rerun alone
+SWEEP_MEMBERS = 16
 
 
 def log(msg: str = "") -> None:
@@ -160,9 +185,12 @@ def main() -> int:
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.kernels.vadv.ref import vadv_ref
+    from repro_torch.core import autotune
     from repro_torch.ensemble import Ensemble, batch, perturb
     from repro_torch.models import build_model
-    from repro_torch.stencils import climate, hdiff, vadv, vintg
+    from repro_torch.obs import trace as otrace
+    from repro_torch.serving import RequestSpec, ServingEngine, drive_engine
+    from repro_torch.stencils import climate, forecast, hdiff, vadv, vintg
 
     walls = Walls()
     dev = torch.device("cuda")
@@ -257,6 +285,29 @@ def main() -> int:
     ens_ce = ens.compiled(meta_fields(MEMBERS), scalars)
     ens_runs = ens_ce.batched_runs({})
     ens_stats = ens.statistics()
+    # path G's programs, built with autotune=True (the tuner picks each group's
+    # block on the card): the climate step and the reference's serving demo,
+    # compiled on meta storages; every candidate block of every group, one
+    # member and member-batched (all scalars shared), builds with the rest
+    serve_progs = {
+        "climate_step": climate.build_program("cuda", DOMAIN, stencils=climate.build_stencils("cuda", autotune=True),
+                                              name="climate_step", autotune=True),
+        "forecast_step": forecast.build_forecast_step("cuda", DOMAIN, autotune=True),
+    }
+    fc_shape = (DOMAIN[0] + 2 * forecast.HALO, DOMAIN[1] + 2 * forecast.HALO, DOMAIN[2])
+    fc_meta = {n: storage.Storage(torch.empty(fc_shape, dtype=torch.float64, device="meta"), "cuda",
+                                  (forecast.HALO, forecast.HALO, 0)) for n in forecast.FIELD_NAMES}
+    serve_cps = {"climate_step": serve_progs["climate_step"].compiled(meta_fields(), scalars),
+                 "forecast_step": serve_progs["forecast_step"].compiled(fc_meta, dict(forecast.DEFAULT_SCALARS))}
+    variants = []
+    for cp_ in serve_cps.values():
+        for obj in cp_.group_objects:
+            # a tune store left by an earlier run in this checkout would hand
+            # the sweep that run's timings: clear it, so every block search
+            # (and every time the sweep prints) is measured on the card now
+            caching.tuning_path(obj.name, obj.fingerprint).unlink(missing_ok=True)
+            for blk in autotune.candidate_blocks(obj._module, DOMAIN):
+                variants += [obj.block_kernel(blk), obj.block_kernel(blk, ())]
     walls.mark("stencil, program and ensemble generation")
     groups = prog_cp.group_objects
     group_names = ["+".join(n.replace("_defs", "") for n in g) for g in prog_cp.report["group_stencils"]]
@@ -265,6 +316,7 @@ def main() -> int:
     kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     kernels += [s.kernel for s in S_sync.values()]
     kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
+    kernels += variants
     for k in kernels:
         k.start_build()
     for k in kernels:
@@ -272,7 +324,8 @@ def main() -> int:
     walls.mark("nvcc")
     log(f"build: {len(S) + len(corpus) + len(S_sync) + 2 * len(groups) + 1} stencils (with the climate "
         f"program's {len(groups)} group kernels, their member-batched variants and the {MEMBERS}-member "
-        f"statistics) and {len(hand)} hand-written kernels, "
+        f"statistics), {len({k.key for k in variants})} block variants of path G's "
+        f"{sum(len(c.group_objects) for c in serve_cps.values())} groups and {len(hand)} hand-written kernels, "
         f"{len({k.key for k in kernels})} CUDA sources compiled for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(corpus programs rejected by the written-API limit: {rejected})")
     for hk in (flash_ops.KERNEL_BF16, flash_ops.KERNEL):
@@ -877,6 +930,249 @@ def main() -> int:
     del oracle, base, one
 
     walls.mark("path F")
+    # ---------------------------------------------------------------- the autotune sweep and path G
+    # one engine on the card holding both autotuned programs at the climate
+    # tile's full size; registration warms every member count at chunk=5,
+    # which tunes each member-batched group's block for its batched shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = otrace.Tracer(enabled=True)
+    engine = ServingEngine(window_ms=2.0, tracer=tracer)
+    serve_fields = {"climate_step": make_fields(arrays, "cuda"),
+                    "forecast_step": forecast.make_forecast_fields("cuda", DOMAIN)[0]}
+    serve_scalars = {"climate_step": dict(scalars), "forecast_step": dict(forecast.DEFAULT_SCALARS)}
+    serve_shared = {"climate_step": ("u", "v", "w"), "forecast_step": ("u", "v")}
+    t0 = time.perf_counter()
+    entries = {pname: engine.register(sprog, fields=serve_fields[pname], scalars=serve_scalars[pname],
+                                      request_fields=("phi",), member_counts=SERVE_COUNTS, warm=True,
+                                      warm_chunk=SERVE_EVERY)
+               for pname, sprog in serve_progs.items()}
+    torch.cuda.synchronize()
+    log(f"path serving: registered {list(entries)} at {DOMAIN} float64 with autotune=True, member counts "
+        f"{list(SERVE_COUNTS)}, warmed at chunk={SERVE_EVERY} (block searches included) in "
+        f"{time.perf_counter() - t0:.1f} s; shared fields {serve_shared}")
+
+    def served_runs(entry, m):
+        """The group runs the engine's m-member ensemble launches (every
+        scalar shared): looked up with meta storages of the batched shapes."""
+        meta = {}
+        for n in entry.prog.field_params:
+            t = entry.fields[n]
+            meta[n] = t if n not in entry.batched_fields else storage.Storage(
+                torch.empty((m,) + tuple(t.shape), dtype=t.data.dtype, device="meta"), "cuda",
+                (0,) + tuple(t.default_origin), ("N",) + tuple(t.axes))
+        return entry.ensembles[m].compiled(meta, entry.scalars).batched_runs({})
+
+    def serving_fields(obj, shape, shared, members=None):
+        """Random inputs for a group of a served program, on the card in the
+        card layout: winds of random sign point by point (so every upwind
+        select takes both branches at every tile edge, and each block's staged
+        halo is read on all four sides), w small, phi and phi_star random,
+        zeros elsewhere; the shared fields without a member axis."""
+        out = {}
+        for n in obj.field_info:
+            shp = shape if members is None or n in shared else (members,) + shape
+            t = storage.card_tensor(shp, torch.float64, dev)
+            tgen.manual_seed(len(out) + 300)
+            if n in ("u", "v"):
+                t.copy_(0.8 * torch.randn(shp, generator=tgen, device=dev, dtype=torch.float64))
+            elif n == "w":
+                t.copy_(0.2 * torch.rand(shp, generator=tgen, device=dev, dtype=torch.float64))
+            elif n in ("phi", "phi_star"):
+                t.copy_(torch.randn(shp, generator=tgen, device=dev, dtype=torch.float64))
+            else:
+                t.zero_()
+            out[n] = t
+        return out
+
+    def check_tuned(pname, gi, obj, kernel, members):
+        """The tuned kernel against the group's plain module (member by member
+        when batched; ``members`` 0: the one-member program's kernel, no
+        member axis) on the same inputs, 1e-12; returns (max abs err, kernel
+        ms, plain ms)."""
+        entry = entries[pname]
+        shape = tuple(entry.fields["phi"].shape)
+        shared = serve_shared[pname]
+        sc = entry.cp.runtime_scalars(entry.scalars)
+        fields = serving_fields(obj, shape, shared, members or None)
+        origins = {n: tuple(entry.fields[n].default_origin) for n in fields}
+        got = {n: t.clone() for n, t in fields.items()}
+        want = {n: t.clone() for n, t in fields.items()}
+        launch = kernel.prepare(got, sc, DOMAIN, origins, members=members or None)
+        launch()
+        if not members:
+            plain = lambda: obj._run(want, sc, DOMAIN, origins)  # noqa: E731
+        else:
+            plain = lambda: [obj._run({n: (t if n in shared else t[m]) for n, t in want.items()}, sc, DOMAIN,  # noqa: E731
+                                      origins) for m in range(members)]
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for n in obj.implementation_ir.written_api_fields():
+            if not torch.isfinite(got[n]).all():
+                raise AssertionError(f"{pname} group {gi}: non-finite tuned-kernel output {n!r}")
+            err = max(err, float((got[n] - want[n]).abs().max()))
+            if not torch.allclose(got[n], want[n], rtol=1e-12, atol=1e-12):
+                raise AssertionError(f"{pname} group {gi} block {kernel.module.BLOCK} ({members} members): the "
+                                     f"tuned kernel differs from the plain module on {n!r} by {err:.3e}")
+        ms = cuda_ms(launch, iters=3)
+        del fields, got, want, launch
+        return err, ms, plain_ms
+
+    # the sweep: every candidate's card time at one member (the one-member
+    # program's groups, which the runs alone below launch) and at 16 members
+    # (the served 16-member ensemble's groups), as the tuner measured them
+    serve_gnames = {pname: ["+".join(n.replace("_defs", "") for n in g) for g in e.cp.report["group_stencils"]]
+                    for pname, e in entries.items()}
+    tuned = {}  # (program, group, members; 0: the one-member program) -> (block, record, kernel)
+    for pname, entry in entries.items():
+        one_kernels = entry.cp.group_kernels  # resolves (tunes) the one-member groups' blocks
+        for gi, obj in enumerate(entry.cp.group_objects):
+            blk, rec = obj._resolve_block(DOMAIN)
+            tuned[(pname, gi, 0)] = (tuple(blk), rec, one_kernels[gi])
+        for m in SERVE_COUNTS:
+            for gi, r in enumerate(served_runs(entry, m)):
+                kern = r.kernel
+                tuned[(pname, gi, m)] = (tuple(kern.module.BLOCK), r.autotune, kern)
+        for gi, obj in enumerate(entry.cp.group_objects):
+            b1, rec1, _k = tuned[(pname, gi, 0)]
+            b16, rec16, _k = tuned[(pname, gi, SWEEP_MEMBERS)]
+            t1 = {tuple(t["block"]): t["us"] / 1e3 for t in rec1["timings"]}
+            t16 = {tuple(t["block"]): t["us"] / 1e3 for t in rec16["timings"]}
+            for blk in sorted(set(t1) | set(t16)):
+                a_ = f"{t1[blk]:.4f} ms" if blk in t1 else "not a candidate"
+                b_ = (f"{t16[blk]:.4f} ms ({t16[blk] / SWEEP_MEMBERS:.4f} a member)" if blk in t16
+                      else "not a candidate")
+                mark = "".join([" <- picked at 1 member" if blk == b1 else "",
+                                f" <- picked at {SWEEP_MEMBERS} members" if blk == b16 else ""])
+                log(f"sweep {pname} group {gi} [{serve_gnames[pname][gi]}] {DOMAIN} float64 block {blk}: "
+                    f"1 member {a_}, {SWEEP_MEMBERS} members {b_}{mark}")
+            best1, best16 = min(t1.values()), min(t16.values())
+            default1 = t1.get(tuple(codegen_cuda.DEFAULT_BLOCK))
+            log(f"sweep {pname} group {gi}: best one-member block {b1} {best1:.4f} ms (default "
+                f"{codegen_cuda.DEFAULT_BLOCK} {default1:.4f} ms); best {SWEEP_MEMBERS}-member block {b16} "
+                f"{best16 / SWEEP_MEMBERS:.4f} ms a member, {best16 / SWEEP_MEMBERS / best1:.3f}x the best "
+                f"one-member time (CUDA events, best of the tuner's iterations) -- {card}")
+            log(f"sweep {pname} group {gi}: tune store {caching.tuning_path(obj.name, obj.fingerprint)}")
+        for m in SERVE_COUNTS:
+            log(f"sweep {pname}: blocks picked at {m} members: "
+                f"{[tuned[(pname, gi, m)][0] for gi in range(len(entry.cp.group_objects))]}"
+                f" (searched on the card in this run; the store was cleared at the build)")
+    # every block the tuner picked, as launched, against the plain module
+    tuned_check = {}
+    for (pname, gi, m), (blk, _rec, kern) in sorted(tuned.items()):
+        obj = entries[pname].cp.group_objects[gi]
+        tuned_check[(pname, gi, m)] = check_tuned(pname, gi, obj, kern, m)
+        log(f"check tuned {pname} group {gi} [{serve_gnames[pname][gi]}] block {blk} "
+            f"{'one-member program' if m == 0 else f'{m}-member ensemble'}: max_abs_err "
+            f"{tuned_check[(pname, gi, m)][0]:.3e} against the plain module"
+            f"{'' if m == 0 else ' member by member'} (rtol 1e-12, atol 1e-12)")
+    # a second build of the identical program: a pure cache hit of the tune store on disk
+    autotune._memory.clear()
+    again = climate.build_program("cuda", DOMAIN, stencils=climate.build_stencils("cuda", autotune=True),
+                                  name="climate_step", autotune=True).compiled(meta_fields(), scalars)
+    for gi, obj in enumerate(again.group_objects):
+        blk, rec = obj._resolve_block(DOMAIN)
+        if rec["cache_hit"] is not True or tuple(blk) != tuned[("climate_step", gi, 0)][0]:
+            raise AssertionError(f"climate program rebuilt: group {gi} record {rec.get('cache_hit')}, block {blk}")
+        log(f"sweep climate_step group {gi}: second build of the identical program, cache_hit: "
+            f"{rec['cache_hit']}, block {tuple(blk)} (store {caching.tuning_path(obj.name, obj.fingerprint)})")
+    del again
+    walls.mark("autotune sweep and tuned-kernel checks")
+
+    # path G: the load, all requests submitted at once
+    def climate_request(seed):
+        """A per-request initial phi for the climate program: the blob and
+        a seeded perturbation, shaped like the template."""
+        return arrays["phi"] + 1e-3 * np.random.default_rng(seed).normal(size=arrays["phi"].shape)
+
+    specs = [RequestSpec("climate_step", {"phi": climate_request(i + 1)}, steps=SERVE_STEPS,
+                         stream_every=SERVE_EVERY) for i in range(SERVE_CLIMATE)]
+    specs += [RequestSpec("forecast_step", {"phi": forecast.request_state(DOMAIN, seed=i + 1)}, steps=SERVE_STEPS,
+                          stream_every=SERVE_EVERY) for i in range(SERVE_FORECAST)]
+
+    async def serve_load():
+        async with engine:
+            return await drive_engine(engine, specs)
+
+    torch.cuda.synchronize()
+    tracer.clear()
+    codegen_cuda.reset_launch_counts()
+    load = asyncio.run(serve_load())
+    torch.cuda.synchronize()
+    # the served kernels: one per group and picked block (member counts that
+    # picked the same block share it); the member count each program's
+    # windows ran at, from the requests' done events
+    served = {}
+    for pname, entry in entries.items():
+        for m in SERVE_COUNTS:
+            for r in served_runs(entry, m):
+                served[id(r.kernel)] = r.kernel
+    only_these_ran("forecast serving", {f"{k.key}#{i}": k.launches for i, k in enumerate(served.values())})
+    served_m = {pname: sorted({r.members for r, sp in zip(load.results, specs) if sp.program == pname})
+                for pname in entries}
+    serve_launches = {(pname, gi, m): tuned[(pname, gi, m)][2].launches for pname, ms in served_m.items()
+                      for m in ms for gi in range(len(entries[pname].cp.group_objects))}
+    stats = engine.stats()
+    bad = [r.request_id for r in load.results if not r.ok or r.steps_seen != list(range(SERVE_EVERY, SERVE_STEPS + 1,
+                                                                                        SERVE_EVERY))]
+    if bad or stats["errors"] or stats["retries"] or stats["bisects"]:
+        raise AssertionError(f"serving: requests not done {bad}; errors {stats['errors']}, retries "
+                             f"{stats['retries']}, bisects {stats['bisects']}")
+    if min(serve_launches.values()) == 0 or sum(serve_launches.values()) != sum(
+            k.launches for k in served.values()):
+        raise AssertionError(f"serving: launches {serve_launches}, windows at {served_m} members")
+    spans = tracer.snapshot()
+    span_s = {k: sum(sp["end_s"] - sp["start_s"] for sp in spans if sp["name"] == f"serving.{k}")
+              for k in ("scatter", "gather", "dispatch")}
+    dispatch_s = {pname: e.hist["dispatch"].sum for pname, e in entries.items()}
+    padded = {pname: stats["per_program"][pname]["padded_members"] for pname in entries}
+    member_step_ms = {pname: dispatch_s[pname] / (SERVE_STEPS * padded[pname]) * 1e3 for pname in entries}
+    field_mb = {pname: e.fields["phi"].data.numel() * 8 / 1e6 for pname, e in entries.items()}
+    scatter_mb = sum(field_mb[p] * padded[p] for p in entries)
+    gather_mb = sum(field_mb[sp_.program] * (SERVE_STEPS // SERVE_EVERY) for sp_ in specs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"path serving: {len(specs)} requests ({SERVE_CLIMATE} climate_step, {SERVE_FORECAST} forecast_step) x "
+        f"{SERVE_STEPS} steps, streamed every {SERVE_EVERY}, at {DOMAIN} float64; launches "
+        f"{ {f'{p}.{serve_gnames[p][g]}@{m}': n for (p, g, m), n in serve_launches.items()} }")
+    log(f"serving: {load.requests_per_second:.2f} requests/s, p50 {load.p50_ms:.1f} ms, p99 {load.p99_ms:.1f} ms "
+        f"(host clock, submit to done), wall {load.wall_s:.3f} s; windows {stats['batches']}, dispatches "
+        f"{stats['dispatches']}, member occupancy {stats['mean_occupancy']:.3f} "
+        f"({ {p: round(v['live_members'] / max(1, v['padded_members']), 3) for p, v in stats['per_program'].items()} }); "
+        f"retries {stats['retries']}, bisects {stats['bisects']}, errors {stats['errors']} -- {card}")
+    log(f"serving: dispatch seconds {dispatch_s} (sum {sum(dispatch_s.values()):.4f} s, "
+        f"{sum(dispatch_s.values()) / load.wall_s:.3f} of the load's wall; the two programs' dispatches may "
+        f"overlap); host copies: scatter {span_s['scatter']:.4f} s ({scatter_mb:.0f} MB to the card, pageable), "
+        f"gather {span_s['gather']:.4f} s ({gather_mb:.0f} MB to the host, card layout transposed on the host) "
+        f"-- {card}")
+    log(f"serving: member-step inside serving {member_step_ms} ms (dispatch seconds over steps x padded members), "
+        f"against path F's bare Ensemble.iterate member-step {ens_ms / MEMBERS:.4f} ms ({MEMBERS} members); "
+        f"peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated) -- {card}")
+    # the runs alone: climate requests 0, 7 and 15 and the last forecast
+    # request, each from its own state through ProgramObject.iterate
+    by_id = {r.request_id: r for r in load.results}
+    for idx in SERVE_ALONE + (SERVE_CLIMATE + SERVE_FORECAST - 1,):
+        spec, res = specs[idx], by_id[f"load-{idx}"]
+        pname = spec.program
+        one = {n: storage.Storage(s_.data.clone(), "cuda", s_.default_origin, s_.axes)
+               for n, s_ in serve_fields[pname].items()}
+        one["phi"].data.copy_(torch.from_numpy(spec.fields["phi"]))
+        for t in range(SERVE_EVERY, SERVE_STEPS + 1, SERVE_EVERY):
+            serve_progs[pname].iterate(SERVE_EVERY, **one, **serve_scalars[pname])
+            alone = one["phi"].to_numpy()
+            if not np.array_equal(res.step_fields[t]["phi"], alone):
+                err = float(np.abs(res.step_fields[t]["phi"] - alone).max())
+                raise AssertionError(f"serving: request {idx} ({pname}) at step {t} differs from its run alone "
+                                     f"by {err:.3e}")
+        if not np.isfinite(res.step_fields[SERVE_STEPS]["phi"]).all():
+            raise AssertionError(f"serving: request {idx} streamed non-finite values")
+        del one
+    log(f"serving: climate_step requests {list(SERVE_ALONE)} and forecast_step request "
+        f"{SERVE_CLIMATE + SERVE_FORECAST - 1} (padded to {by_id[f'load-{SERVE_CLIMATE + SERVE_FORECAST - 1}'].members} "
+        f"members) equal their runs alone through ProgramObject.iterate bit for bit at every streamed step")
+    serve_objs = {pname: list(e.cp.group_objects) for pname, e in entries.items()}
+    del load, by_id, engine, entries, serve_fields
+    walls.mark("path G")
     # ---------------------------------------------------------------- 5. times
     def bound(st, domain, members=1, shared=()):
         """(bytes, flops) this call needs: each input region read once, each
@@ -1057,6 +1353,32 @@ def main() -> int:
         "library_ms": None, "members": MEMBERS,
     })
     del ef, st_fields, stats_out, xm
+    # path G's kernels: each served group's tuned member-batched kernel at the
+    # member count the load launched it at (times from the tuned-kernel checks)
+    for (pname, gi, m), n_launch in sorted(serve_launches.items()):
+        obj = serve_objs[pname][gi]
+        blk, rec, _k = tuned[(pname, gi, m)]
+        err, ms, plain_ms = tuned_check[(pname, gi, m)]
+        bound_ms, bound_by, nbytes, _fl = bound(obj, DOMAIN, m, serve_shared[pname])
+        log(f"time serving {pname} group {gi} [{serve_gnames[pname][gi]}] {m} x {DOMAIN} float64, tuned block "
+            f"{blk}: kernel {ms:.4f} ms ({ms / m:.4f} ms a member), plain torch member by member {plain_ms:.4f} ms, "
+            f"no single PyTorch call, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB); launches "
+            f"{n_launch} -- {card}")
+        report.append({
+            "name": f"serving.{pname}.{serve_gnames[pname][gi]}", "route": "cuda",
+            "source": "src/repro_torch/core/codegen_cuda.py", "replaces": "src/repro/core/codegen_pallas.py:123",
+            "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "members": m, "block": list(blk),
+            "tuned_us": {f"{t['block'][0]}x{t['block'][1]}": t["us"] for t in rec["timings"]},
+            "one_member_block": list(tuned[(pname, gi, 0)][0]),
+            "one_member_max_abs_err": tuned_check[(pname, gi, 0)][0],
+            "one_member_tuned_us": {f"{t['block'][0]}x{t['block'][1]}": t["us"]
+                                    for t in tuned[(pname, gi, 0)][1]["timings"]},
+        })
+    for pname, wall_s in dispatch_s.items():
+        kern_s = sum(tuned_check[key][1] * n for key, n in serve_launches.items() if key[0] == pname) / 1e3
+        log(f"time serving {pname}: the load's kernels {kern_s:.4f} s of card time (tuned kernel ms x launches) "
+            f"inside {wall_s:.4f} s of dispatch walls ({kern_s / wall_s:.3f}) -- {card}")
     # the user-facing entry points, end to end: argument checks, hdiff's seeding
     # copy of its input, vadv's scratch, and the launch
     def card_copy(t):

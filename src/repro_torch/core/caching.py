@@ -12,8 +12,10 @@ The port keeps its own cache directory (``REPRO_TORCH_GT_CACHE``, default
 IR, backend and options, and both packages' modules may live in one process.
 The ``cuda`` backend's fingerprint also carries ``codegen_cuda.CODEGEN_VERSION``
 so that a change to the kernel generator rebuilds the shared libraries.
-Programs (``program_fingerprint``) and member-batched kernels
-(``member_fingerprint``) are keyed on top of their stencils' fingerprints.
+Programs (``program_fingerprint``), member-batched kernels
+(``member_fingerprint``) and the autotuner's block variants
+(``block_fingerprint``) are keyed on top of their stencils' fingerprints;
+tuning records (``tuning_path``) on the stencil's own.
 """
 
 from __future__ import annotations
@@ -113,6 +115,24 @@ def program_fingerprint(
         ]
     )
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def block_fingerprint(fp: str, block) -> str:
+    """The fingerprint of a ``cuda`` stencil's kernel for another thread
+    block than the one its module was generated for: ``BI`` and ``BJ`` are
+    constants of the generated source, so each block the autotuner times is
+    its own source, module and build."""
+    payload = "|".join([fp, "block", "x".join(str(int(b)) for b in block)])
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def tuning_path(name: str, fp: str) -> Path:
+    """Where the tile autotuner persists its result for a module.
+
+    Lives alongside the generated ``rt_<name>_<fp>.py`` in the port's cache
+    and shares its fingerprint, so a tuning record can never outlive the
+    exact IR + options it was measured for (``core/autotune.py``)."""
+    return cache_dir() / f"{module_key(name, fp)}.tune.json"
 
 
 def module_key(name: str, fp: str) -> str:

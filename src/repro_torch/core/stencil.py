@@ -14,6 +14,13 @@ fields in place and return ``None``; ``apply`` is the functional twin.
 ``cuda`` launches the generated Hopper kernel (``codegen_cuda``) when the
 fields are CUDA tensors and runs the plain ``torch`` module when they lie on
 the CPU; it never falls back from one to the other.  Calls are eager.
+
+``autotune=True`` (``cuda`` and tiled ``numpy``) picks the block a call
+runs with through ``core/autotune.py``; a pinned ``block=`` (``cuda``) or
+``tile=`` (``numpy``) always wins.  On the card each tuned block is its own
+generated kernel (``StencilObject.block_kernel``).  A ``cuda`` stencil on
+CPU tensors runs its plain module: there is no block to tune, and
+``exec_info["autotune"]`` says so.
 """
 
 from __future__ import annotations
@@ -88,7 +95,8 @@ class StencilObject:
         pass_report: Optional[list] = None,
         module=None,
         kernel=None,
-        tile_pin: Optional[Tuple[int, int]] = None,
+        autotune_cfg: Optional[Dict[str, Any]] = None,
+        pinned_block: Optional[Tuple[int, int]] = None,
     ):
         self.name = name
         self.backend = backend
@@ -104,9 +112,13 @@ class StencilObject:
         self._module = module
         # cuda: the compiled kernel (``_run`` is then the plain torch module's)
         self.kernel = kernel
-        # numpy stage tiling on: run() takes block=; an explicit tile wins
+        # numpy stage tiling on: run() takes block=
         self._numpy_tiled = backend == "numpy" and hasattr(module, "_BLOCK_DEFAULT")
-        self._tile_pin = tuple(tile_pin) if tile_pin is not None else None
+        # the autotune configuration, and an explicit user-pinned block (the
+        # cuda ``block=`` or the numpy ``tile=``), which always wins over it
+        self._autotune_cfg = dict(autotune_cfg or {})
+        self._pinned_block = tuple(pinned_block) if pinned_block is not None else None
+        self._block_cache: Dict[Any, Any] = {}
 
         impl = implementation_ir
         kext = dict(impl.k_extents)
@@ -116,7 +128,9 @@ class StencilObject:
         }
         self.scalar_info = {s.name: np.dtype(s.dtype) for s in impl.scalars}
         self._field_order = [f.name for f in impl.api_fields]
-        self._member_kernels: Dict[Tuple[str, ...], Any] = {}
+        # cuda kernels by (block, per-member scalars): block variants and
+        # member-batched kernels
+        self._kernels: Dict[Tuple[Any, Any], Any] = {}
 
     @property
     def launches(self) -> int:
@@ -128,25 +142,88 @@ class StencilObject:
         if self.kernel is not None:
             self.kernel.launches = int(value)
 
-    def member_kernel(self, member_scalars=()):
-        """The member-batched variant of this ``cuda`` stencil's kernel: one
+    @property
+    def tunes(self) -> bool:
+        """True when calls pick their block through the autotuner."""
+        return bool(self._autotune_cfg.get("autotune")) and self._pinned_block is None and (
+            self.backend == "cuda" or self._numpy_tiled
+        )
+
+    def block_kernel(self, block=None, member_scalars=None):
+        """This ``cuda`` stencil's kernel for thread block ``block`` (``None``:
+        the module's own).  ``BI``/``BJ`` are constants of the generated
+        source, so another block is another source: its module name carries
+        the block and its fingerprint is ``caching.block_fingerprint`` of the
+        stencil's, so variants never overwrite each other in the cache.
+
+        When ``member_scalars`` is a tuple the kernel is member-batched: one
         launch runs every member of an ensemble, ``blockIdx.z`` the member
         (``codegen_cuda.generate_cuda_module_source(member_scalars=...)``).
         ``member_scalars`` names the scalars that take one value a member;
         they are part of the kernel's source and of its fingerprint."""
         if self.backend != "cuda":
-            raise TypeError(f"member_kernel() needs the cuda backend, not {self.backend!r}")
-        key = tuple(sorted(member_scalars))
-        kernel = self._member_kernels.get(key)
+            raise TypeError(f"block_kernel() needs the cuda backend, not {self.backend!r}")
+        block = tuple(int(b) for b in block) if block is not None else tuple(self._module.BLOCK)
+        mkey = None if member_scalars is None else tuple(sorted(member_scalars))
+        if block == tuple(self._module.BLOCK) and mkey is None:
+            return self.kernel
+        kernel = self._kernels.get((block, mkey))
         if kernel is None:
             from .codegen_cuda import CudaKernel, generate_cuda_module_source
 
-            fp = caching.member_fingerprint(self.fingerprint, key)
-            source = generate_cuda_module_source(self.implementation_ir, self._module.BLOCK, member_scalars=key)
-            module = caching.load_generated_module(self.name, fp, source)
-            kernel = CudaKernel(module, caching.module_key(self.name, fp), caching.cache_dir())
-            self._member_kernels[key] = kernel
+            name, fp = self.name, self.fingerprint
+            if block != tuple(self._module.BLOCK):
+                name, fp = f"{self.name}_b{block[0]}x{block[1]}", caching.block_fingerprint(fp, block)
+            if mkey is not None:
+                fp = caching.member_fingerprint(fp, mkey)
+            source = generate_cuda_module_source(self.implementation_ir, block, member_scalars=mkey)
+            module = caching.load_generated_module(name, fp, source)
+            kernel = CudaKernel(module, caching.module_key(name, fp), caching.cache_dir())
+            self._kernels[(block, mkey)] = kernel
         return kernel
+
+    def _resolve_block(
+        self, domain, operand_shapes=None, member_scalars=None
+    ) -> Tuple[Optional[Tuple[int, int]], Optional[dict]]:
+        """The block for this domain + operand geometry: a pinned block wins,
+        otherwise the autotuner's (cached) choice, otherwise ``None`` (the
+        module's own).  ``operand_shapes`` carries the FULL argument shapes
+        (member/batch axes included) so a batched run never reuses a block
+        tuned for unbatched shapes; on ``cuda`` a batched search times the
+        member-batched kernel with ``member_scalars`` per member."""
+        if not self.tunes:
+            return self._pinned_block, None
+        if operand_shapes is not None:
+            operand_shapes = tuple(
+                sorted((str(n), tuple(int(x) for x in s)) for n, s in operand_shapes)
+            )
+        key = (tuple(domain), operand_shapes)
+        cached = self._block_cache.get(key)
+        if cached is None:
+            from . import autotune
+
+            kwargs: Dict[str, Any] = {}
+            if self._autotune_cfg.get("autotune_candidates") is not None:
+                kwargs["candidates"] = self._autotune_cfg["autotune_candidates"]
+            if self._autotune_cfg.get("autotune_iters") is not None:
+                kwargs["iters"] = int(self._autotune_cfg["autotune_iters"])
+            if self._autotune_cfg.get("autotune_warmup") is not None:
+                kwargs["warmup"] = int(self._autotune_cfg["autotune_warmup"])
+            if self.backend == "cuda":
+                batched = autotune.batch_count(self._module, operand_shapes) is not None
+                mkey = tuple(member_scalars or ()) if batched else None
+                kwargs["kernels"] = lambda b: self.block_kernel(b, mkey)
+                kwargs["member_scalars"] = mkey or ()
+            cached = autotune.select_block(
+                self._module,
+                self.name,
+                self.fingerprint,
+                tuple(domain),
+                operand_shapes=operand_shapes,
+                **kwargs,
+            )
+            self._block_cache[key] = cached
+        return cached
 
     # ------------------------------------------------------------------ binding
 
@@ -291,6 +368,19 @@ class StencilObject:
             traced = _trace_hook(self, args, kwargs, domain=domain, origin=origin)
             if traced is not NOT_TRACED:
                 return traced
+        if exec_info is not None and exec_info.get("trace") is True:
+            # per-call trace opt-in: capture this call's spans into a fresh
+            # tracer and hand back Chrome-trace JSON under exec_info["trace"]
+            from repro_torch.obs import export as obs_export
+
+            del exec_info["trace"]
+            with otrace.capture() as cap:
+                result = self.__call__(
+                    *args, domain=domain, origin=origin,
+                    validate_args=validate_args, exec_info=exec_info, **kwargs,
+                )
+            exec_info["trace"] = obs_export.chrome_trace(cap.snapshot())
+            return result
         if exec_info is not None:
             exec_info["call_start_time"] = time.perf_counter()
             exec_info["pass_report"] = list(self.pass_report)
@@ -306,12 +396,16 @@ class StencilObject:
 
         raw_fields = {n: self._raw(v) for n, v in fields.items()}
 
-        block = self._numpy_block()
+        block, autotune_record = self._call_block(raw_fields, domain)
         if exec_info is not None:
-            if block is not None:
-                exec_info["numpy_tile"] = dict(self._module._TILING, block=tuple(block))
+            if self._numpy_tiled:
+                exec_info["numpy_tile"] = dict(
+                    self._module._TILING, block=tuple(block or self._module._BLOCK_DEFAULT)
+                )
             if self.backend == "cuda":
                 exec_info["schedule"] = self._module.SCHEDULE
+            if autotune_record is not None:
+                exec_info["autotune"] = autotune_record
             exec_info["run_start_time"] = time.perf_counter()
 
         with otrace.span(
@@ -329,10 +423,17 @@ class StencilObject:
             exec_info["run_end_time"] = time.perf_counter()
         return None
 
-    def _numpy_block(self) -> Optional[Tuple[int, int]]:
-        if not self._numpy_tiled:
-            return None
-        return self._tile_pin or tuple(self._module._BLOCK_DEFAULT)
+    def _call_block(self, raw_fields, domain) -> Tuple[Optional[Tuple[int, int]], Optional[dict]]:
+        """The block this call runs with, and the autotune record when the
+        tuner chose it.  A ``cuda`` call on CPU tensors runs the plain module:
+        nothing to tune."""
+        if self.backend == "cuda" and self.tunes and not any(
+            isinstance(v, torch.Tensor) and v.is_cuda for v in raw_fields.values()
+        ):
+            return None, {"tuned": False, "reason": "CPU tensors run the plain torch module: no kernel to tune"}
+        if self.backend != "cuda" and not self._numpy_tiled:
+            return None, None
+        return self._resolve_block(domain, [(n, tuple(v.shape)) for n, v in raw_fields.items()])
 
     def _execute(self, raw_fields, scalars, domain, origins, block) -> None:
         """Run in place on the fields' own memory: NumPy arrays for
@@ -361,7 +462,7 @@ class StencilObject:
             raise ValueError(f"{self.name}(): fields lie on more than one device: {sorted(map(str, devices))}")
         (device,) = devices
         if self.backend == "cuda" and device.type == "cuda":
-            self.kernel.launch(raw_fields, scalars, domain, origins)
+            self.block_kernel(block).launch(raw_fields, scalars, domain, origins)
         elif self.backend == "cuda" and device.type != "cpu":
             raise ValueError(f"{self.name}(): backend 'cuda' runs on CUDA or CPU tensors, not {device}")
         else:
@@ -404,7 +505,8 @@ class StencilObject:
         for n, v in fields.items():
             raw = self._raw(v)
             work[n] = raw.clone() if isinstance(raw, torch.Tensor) else np.array(raw, copy=True)
-        self._execute(work, scalars, domain, origins, self._numpy_block())
+        block, _ = self._call_block(work, domain)
+        self._execute(work, scalars, domain, origins, block)
         written = set(self.implementation_ir.written_api_fields())
         return {n: work[n] for n in self._field_order if n in written}
 
@@ -482,14 +584,19 @@ def build_from_definition(
 
     ``backend_opts`` carries the pass-pipeline configuration (``opt_level``,
     ``disable_passes``, ``enable_passes`` — see ``passes.py``) alongside any
-    codegen options: the numpy ``tile`` and the cuda ``block`` shape.
-    ``autotune=True`` raises ``NotImplementedError``: the tile autotuner
-    (the reference's ``core/autotune.py``) is not ported yet."""
+    codegen options: the numpy ``tile`` and the cuda ``block`` shape, and
+    the autotuner configuration (``autotune=True`` plus optional
+    ``autotune_candidates`` / ``autotune_iters`` / ``autotune_warmup`` — see
+    ``autotune.py``).  The autotune keys deliberately stay *out* of the
+    cache fingerprint: they change which block a call runs with, never the
+    generated module, and the tuning store is keyed on the fingerprint so
+    identical IR + options always share one tuning record."""
     pass_cfg, codegen_opts = passes.split_backend_opts(backend_opts)
-    if codegen_opts.pop("autotune", False):
-        raise NotImplementedError("autotune=True: the tile autotuner is not ported to the torch package yet")
-    for k in ("autotune_candidates", "autotune_iters", "autotune_warmup"):
-        codegen_opts.pop(k, None)
+    autotune_cfg = {
+        k: codegen_opts.pop(k)
+        for k in ("autotune", "autotune_candidates", "autotune_iters", "autotune_warmup")
+        if k in codegen_opts
+    }
     user_tile = codegen_opts.get("tile", _TILE_UNSET)
     if backend == "numpy":
         # numpy stage tiling (a backend-schedule pass, codegen_array.py):
@@ -581,6 +688,12 @@ def build_from_definition(
             run_fn = caching.load_generated_module(name, plain_fp, plain_source, rebuild=rebuild).run
             kernel = CudaKernel(module, caching.module_key(name, fp), caching.cache_dir())
             generated_source = module.CUDA_SOURCE
+    if backend == "cuda":
+        pinned = codegen_opts.get("block")
+    elif backend == "numpy" and user_tile is not _TILE_UNSET:
+        pinned = user_tile  # explicit tile pin always wins over the autotuner
+    else:
+        pinned = None
     return StencilObject(
         name=name,
         backend=backend,
@@ -593,5 +706,6 @@ def build_from_definition(
         pass_report=pass_report,
         module=module,
         kernel=kernel,
-        tile_pin=user_tile if backend == "numpy" and user_tile not in (_TILE_UNSET, None) else None,
+        autotune_cfg=autotune_cfg,
+        pinned_block=pinned,
     )

@@ -9,7 +9,7 @@
    shared with the unbatched path;
 2. on the ``cuda`` backend and CUDA tensors, each fused group is ONE launch
    for all N members: the group's member-batched kernel
-   (``StencilObject.member_kernel``), whose third grid axis is the member —
+   (``StencilObject.block_kernel(block, member_scalars)``), whose third grid axis is the member —
    the counterpart of what ``jax.vmap`` does to the reference's
    ``pallas_call``.  Elsewhere (the ``torch`` backend, or CPU tensors) the
    plain modules run member by member over member views: the plain version
@@ -28,9 +28,13 @@ Scalars are shared by default; a 1-D array of length N is a *per-member*
 scalar (e.g. a perturbed physics constant), read by the kernel at the
 member's index.
 
-(The reference package's ``repro/ensemble/compile.py``; the pallas tile
-re-resolution waits for the autotuner, and ``distribute()`` for the
-distributed programs.)
+With ``autotune=True`` each member-batched group re-resolves its block for
+the BATCHED operand shapes (the tune store keys on the full geometry), so a
+member-batched launch never reuses a block tuned for one member
+(``_CompiledEnsemble.batched_runs``).
+
+(The reference package's ``repro/ensemble/compile.py``; ``distribute()``
+waits for the distributed programs.)
 """
 
 from __future__ import annotations
@@ -159,7 +163,7 @@ class Ensemble:
     def distribute(self, mesh, **kwargs):
         raise NotImplementedError(
             "distribute(): members x domain sharding (the reference's DistributedEnsemble) is not "
-            "ported yet; see ROADMAP.md, Queue 1 #7"
+            "ported yet; see ROADMAP.md, Queue 1, distribution"
         )
 
     def __repr__(self) -> str:
@@ -205,15 +209,32 @@ class _CompiledEnsemble:
 
     def batched_runs(self, scalar_pattern: Dict[str, bool]) -> List[CudaGroupRun]:
         """One member-batched kernel a group, its per-member scalars those of
-        ``scalar_pattern`` (``cuda`` only)."""
+        ``scalar_pattern`` (``cuda`` only).  A group that autotunes resolves
+        its block for the BATCHED operand shapes (the tune store keys on the
+        full geometry), so it never reuses a block tuned for one member."""
         key = tuple(sorted(n for n, per in scalar_pattern.items() if per))
         runs = self._batched_runs.get(key)
         if runs is None:
             runs = [CudaGroupRun(obj, members=self.members,
-                                 member_scalars=[n for n in key if n in obj.scalar_info])
-                    for obj in self.cp.group_objects]
+                                 member_scalars=[n for n in key if n in obj.scalar_info],
+                                 domain=g.domain, operand_shapes=self._operand_shapes(obj, g))
+                    for obj, g in zip(self.cp.group_objects, self.cp.groups)]
             self._batched_runs[key] = runs
         return runs
+
+    def _operand_shapes(self, obj, group) -> Optional[List[Tuple[str, Tuple[int, ...]]]]:
+        """The group's API fields with their shapes as the batched call has
+        them: a member axis in front of each batched field."""
+        shapes = []
+        for b in group.buffers():
+            info = self.cp.graph.buffers.get(b)
+            if b not in obj.field_info or info is None:
+                continue
+            shape = tuple(int(x) for x in info.shape)
+            if self.pattern.get(b, False):
+                shape = (self.members,) + shape
+            shapes.append((b, shape))
+        return shapes or None
 
     def _device(self, raw_fields: Dict[str, Any]) -> torch.device:
         devices = {v.device for v in raw_fields.values() if isinstance(v, torch.Tensor)}

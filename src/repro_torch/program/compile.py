@@ -220,22 +220,45 @@ class CudaGroupRun:
     through launchers prepared once per tensor binding; on CPU tensors its
     plain ``torch`` module.  It never falls back from one to the other.
     ``members`` selects the group's member-batched kernel (one launch for
-    every member of an ensemble), with ``member_scalars`` read per member."""
+    every member of an ensemble), with ``member_scalars`` read per member.
 
-    def __init__(self, obj: stencil_mod.StencilObject, members: Optional[int] = None, member_scalars=()):
+    A group built with ``autotune=True`` resolves its block for ``domain``
+    and ``operand_shapes`` (the member-batched shapes of an ensemble) at its
+    first launch on the card, as the reference resolves a Pallas group's
+    tile when it binds it; ``autotune`` then holds the tuner's record."""
+
+    def __init__(self, obj: stencil_mod.StencilObject, members: Optional[int] = None, member_scalars=(),
+                 domain=None, operand_shapes=None):
         self.obj = obj
         self.members = members
-        kernel = obj.kernel if members is None else obj.member_kernel(member_scalars)
-        self.launches = codegen_cuda.PreparedLaunches(kernel, members=members)
+        self.member_scalars = None if members is None else tuple(member_scalars)
+        self.domain = None if domain is None else tuple(domain)
+        self.operand_shapes = operand_shapes
+        self.autotune: Optional[dict] = None
+        self.launches: Optional[codegen_cuda.PreparedLaunches] = None
+        if not obj.tunes:  # no search can change the kernel: bind it now
+            self.resolve()
+
+    def resolve(self) -> codegen_cuda.PreparedLaunches:
+        """Bind the kernel of the group's block (tuned on the card when the
+        group autotunes, at most once per geometry and fingerprint)."""
+        if self.launches is None:
+            block = None
+            if self.obj.tunes:
+                block, self.autotune = self.obj._resolve_block(self.domain, self.operand_shapes,
+                                                               self.member_scalars)
+            kernel = self.obj.block_kernel(block, self.member_scalars)
+            self.launches = codegen_cuda.PreparedLaunches(kernel, members=self.members)
+        return self.launches
 
     @property
     def kernel(self) -> codegen_cuda.CudaKernel:
-        return self.launches.kernel
+        return self.resolve().kernel
 
     def __call__(self, fields, scalars, domain, origins) -> None:
         device = _group_device(self.obj, fields)
         if device.type == "cuda":
-            self.launches(fields, scalars, domain, origins)
+            self.resolve()(fields, scalars, domain, origins)
         elif device.type == "cpu" and self.members is None:
             self.obj._run(fields, scalars, domain, origins)
         else:
@@ -386,7 +409,8 @@ class CompiledProgram:
         self.generated_source = source
         self._module = caching.load_generated_module(f"{name}_prog", self.fingerprint, source)
         self._group_runs = [
-            CudaGroupRun(o) if backend == "cuda" else o._run for o in self.group_objects
+            CudaGroupRun(o, domain=g.domain) if backend == "cuda" else o._run
+            for o, g in zip(self.group_objects, groups)
         ]
         self.report = {
             **plan.base_report(),
@@ -416,8 +440,9 @@ class CompiledProgram:
 
     @property
     def group_kernels(self) -> List[codegen_cuda.CudaKernel]:
-        """The one-member kernel of each group (``cuda`` only)."""
-        return [o.kernel for o in self.group_objects]
+        """The one-member kernel each group launches (``cuda`` only): the
+        kernel of its tuned block when the program autotunes."""
+        return [r.kernel for r in self._group_runs]
 
     def runtime_scalars(self, scalar_values: Dict[str, Any]) -> Dict[str, Any]:
         merged = dict(self.const_scalars)
@@ -661,7 +686,7 @@ class ProgramObject:
     def distribute(self, mesh, **kwargs):
         raise NotImplementedError(
             "distribute(): mesh-sharded programs (the reference's DistributedProgram and "
-            "program/halo.py) are not ported yet; see ROADMAP.md, Queue 1 #7"
+            "program/halo.py) are not ported yet; see ROADMAP.md, Queue 1, distribution"
         )
 
     def ensemble(self, members: int, **kwargs):

@@ -55,12 +55,14 @@ def diffuse_defs(phi: Field[np.float64], out: Field[np.float64], *, alpha: np.fl
 
 
 def build_forecast_step(backend: str, domain: Tuple[int, int, int], *, name: str = "forecast_step", **opts):
-    """The three-stencil step as a rotation-closed ``@program`` object."""
+    """The three-stencil step as a rotation-closed ``@program`` object.
+    ``opts`` (e.g. ``autotune=True``) go to the three stencils and to the
+    program, whose fused groups are stencils of their own."""
     build = gtscript.stencil(backend=backend, **opts)
     advect, euler, diffuse = build(advect_defs), build(euler_defs), build(diffuse_defs)
     dom = tuple(int(d) for d in domain)
 
-    @program(backend=backend, name=name)
+    @program(backend=backend, name=name, **opts)
     def forecast_step(phi, u, v, adv, phi_star, phi_new, *, dx, dy, dt, alpha):
         advect(phi, u, v, adv, dx=dx, dy=dy, domain=dom)
         euler(phi, adv, phi_star, dt=dt, domain=dom)

@@ -133,8 +133,10 @@ def test_backend_argument_checks():
         st(x, x.copy(), alpha=0.05)
     with pytest.raises(TypeError, match="expects dtype"):
         st(torch.zeros(12, 12, 4, dtype=torch.float32), torch.zeros(12, 12, 4, dtype=torch.float32), alpha=0.05)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        gtscript.stencil("cuda", autotune=True)(t_forecast.euler_defs)
+    # autotune=True builds (the tuner picks the block at the first launch on
+    # the card) and stays out of the fingerprint
+    tuned = gtscript.stencil("cuda", autotune=True)(t_forecast.euler_defs)
+    assert tuned.tunes and tuned.fingerprint == gtscript.stencil("cuda")(t_forecast.euler_defs).fingerprint
     with pytest.raises(TypeError, match="takes no options"):
         gtscript.stencil("torch", block=(4, 4))(t_forecast.euler_defs)
     with pytest.raises(ValueError, match="unknown backend"):

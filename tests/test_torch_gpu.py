@@ -459,7 +459,7 @@ def test_member_batched_kernel_bit_identical_to_member_loop(card):
 
 def test_member_kernel_refuses_a_shared_or_overlapping_output(card):
     euler = climate.build_stencils("cuda")["euler"]
-    kernel = euler.member_kernel()
+    kernel = euler.block_kernel(None, ())
     f = _member_inputs(card, 3)
     origins = {n: (1, 1, 0) for n in ("phi", "adv", "out")}
     with pytest.raises(ValueError, match="shared"):

@@ -147,6 +147,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILIN
 def test_port_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
+    assert {"core/autotune.py", "obs/export.py", "obs/flight.py", "obs/metrics.py", "obs/slo.py",
+            "runtime/supervise.py", "serving/engine.py", "serving/server.py", "serving/client.py",
+            "launch/serve.py"} <= scanned
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
