@@ -39,12 +39,14 @@ Phases, in order; any failure exits non-zero before the result line:
    (B) the eager climate step advect → euler → diffuse → vadv_system → vadv
    for 10 steps at 256 x 256 x 80 float64 on ``storage`` fields, held against
    the same step on the torch backend and, on a small domain, the numpy
-   backend; (C) LM serving of phi3-mini-3.8b at full width and depth with
-   random weights: ``make_cache(4, 2080)``, ``prefill`` of a 4 x 2048 prompt
-   through the bfloat16 tensor-core flash kernel (32 launches, none of the
-   float32 kernel), 32 greedy ``decode_step``s (no launch), held against the
-   same run through the plain ``chunked`` attention in bfloat16 and in
-   float32 (the float32 prefill: 32 launches of the float32 kernel); (D)
+   backend; (C) LM serving of phi3-mini-3.8b at full width, its depth cut
+   to ``LM_LAYERS`` (8 of 32) to keep the script's wall in bounds with path
+   H, with random weights: ``make_cache(4, 2080)``, ``prefill`` of a 4 x
+   2048 prompt through the bfloat16 tensor-core flash kernel (one launch a
+   layer, none of the float32 kernel), 32 greedy ``decode_step``s (no
+   launch), held against the same run through the plain ``chunked``
+   attention in bfloat16 and in float32 (the float32 prefill: one launch of
+   the float32 kernel a layer); (D)
    ``ops.rglru_scan`` as a user calls it; (E) the climate step as a
    ``@program`` (``stencils/climate.py``): 10 calls, then ``iterate(10)``,
    two launches a step (one per fused group) and none of the five
@@ -71,7 +73,23 @@ Phases, in order; any failure exits non-zero before the result line:
    requests/s, p50/p99 latency, windows, dispatches, occupancy, dispatch
    seconds and their share of the wall, the host copies (scatter, gather),
    the member-step inside serving against path F's, and the peak of
-   device memory;
+   device memory; (H) the other LM families at full width with random
+   seeded weights, batch 4 and 32 greedy decode steps (``lm_families``, run
+   after paths A-G have freed their memory): RecurrentGemma-2B (prompt
+   4096, twice its window; bf16 and float32: 18 RG-LRU scans and 8 flash
+   calls a prefill, none in decode), Moonlight-16B-A3B (bf16 weights drawn
+   directly, 57.8 GB; 48 flash calls), Mamba-2 370M (no kernel; against its
+   teacher-forced forward), Whisper-medium (1500 seeded frames encoded once: 24 flash
+   calls, then 48 in prefill and 24 a decode step, the one-query cross
+   attention) and InternVL2-1B (256 seeded patches ahead of the 2048-token
+   prompt; 24 flash calls); each phase's launches asserted exactly; each
+   model against a teacher-forced rerun through the plain versions
+   (float32 at ``rtol=2e-2, atol=2e-3``; bf16 at ``LM_BF16_REL`` where the
+   naive and chunked attentions' prefills agree within half of it), and a
+   rerun holding every kernel call against its plain version on the model's
+   own activations; prefill and decode walls, tokens/s, peak memory, and a
+   ``torch.profiler`` breakdown of each phase (card time, launches, idle
+   share);
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -85,7 +103,9 @@ Phases, in order; any failure exits non-zero before the result line:
    beside its API-byte bound with its full-scratch bytes and ``SCHEDULE``
    temporaries, each member-batched kernel against the same group for one
    member, the ensemble per step and per member-step, and the statistics
-   kernel.
+   kernel; after path H, each flash and RG-LRU shape it ran, beside its plain
+   version, ``scaled_dot_product_attention`` (KV heads expanded, the window
+   as an explicit boolean mask) and its bound.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -114,6 +134,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # H100 SXM, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "phi3-mini-3.8b", 4, 2048, 32
+LM_LAYERS = 8  # path C's depth (of 32): cut when path H came, widths kept
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}  # the reference's kernel tests
 RGLRU_SHAPE = (4, 4096, 2560)  # RecurrentGemma-2B's width, batch 4
 RGLRU_TOL = {"float32": 5e-6, "bfloat16": 5e-2}
@@ -126,6 +147,16 @@ SERVE_STEPS, SERVE_EVERY = 10, 5  # steps a request, streamed (and warmed) every
 SERVE_CLIMATE, SERVE_FORECAST = 16, 5  # requests: one full 16-member window, and 5 padded to 8
 SERVE_ALONE = (0, 7, 15)  # climate requests rerun alone
 SWEEP_MEMBERS = 16
+# path H: (arch, prompt, dtypes), each at full width and depth, batch LM_BATCH
+H_MODELS = (
+    ("recurrentgemma-2b", 4096, ("bfloat16", "float32")),  # twice the 2048 window
+    ("moonshot-v1-16b-a3b", 2048, ("bfloat16",)),
+    ("mamba2-370m", 2048, ("bfloat16",)),
+    ("whisper-medium", 64, ("bfloat16",)),  # and 1500 seeded frames
+    ("internvl2-1b", 2048, ("bfloat16",)),  # and 256 seeded patch embeddings
+)
+H_STEPS = 32  # greedy decode steps
+H_SLACK = 8  # cache rows past the last token
 
 
 def log(msg: str = "") -> None:
@@ -164,13 +195,403 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def lm_families(dev, card: str, configs) -> list:
+    """Path H: the non-dense LM families served on the card, each at full
+    width with random seeded weights, batch ``LM_BATCH``, ``H_STEPS`` greedy
+    decode steps: ``make_cache`` → (enc-dec: ``encode``) → ``prefill`` →
+    ``decode_step``, each phase's launches read exactly, then a teacher-forced
+    rerun through the plain versions; then every new kernel shape the path ran,
+    timed beside its plain version, SDPA and its bound.  ``configs`` maps each
+    arch of ``H_MODELS`` to its config.  Returns the kernels' report rows."""
+    import gc
+    from collections import Counter
+
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import codegen_cuda
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models import build_model
+
+    flash_key = {"bfloat16": flash_ops.KERNEL_BF16.key, "float32": flash_ops.KERNEL.key}
+    gen = torch.Generator(device=dev)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def counts():
+        return {k: n for k, n in codegen_cuda.launch_counts().items() if n}
+
+    def serve(model, params, batch, max_len, steps, forced=None, step_extra=None):
+        """make_cache → (encode) → prefill → ``steps`` decode steps, greedy unless
+        ``forced`` holds the tokens; host clock, synchronized.  Returns the
+        logits (prefill first), the tokens, seconds and launches per phase."""
+        cache = model.make_cache(LM_BATCH, max_len, device=dev)
+        secs, launched = {}, {}
+        sync()
+        codegen_cuda.reset_launch_counts()
+        batch = dict(batch)
+        if "frames" in batch:  # enc-dec: encode once, the cross K/V reused by every step
+            t0 = time.perf_counter()
+            enc_kv = model.encode(params, batch.pop("frames"))
+            sync()
+            secs["encode"], launched["encode"] = time.perf_counter() - t0, counts()
+            codegen_cuda.reset_launch_counts()
+            batch["enc_kv"] = step_extra["enc_kv"] = enc_kv
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        sync()
+        secs["prefill"], launched["prefill"] = time.perf_counter() - t0, counts()
+        codegen_cuda.reset_launch_counts()
+        outs, toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = logits.argmax(dim=-1, keepdim=True) if forced is None else forced[i]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, {"tokens": tok, **(step_extra or {})}, cache)
+            outs.append(logits)
+        sync()
+        secs["decode"], launched["decode"] = time.perf_counter() - t0, counts()
+        if int(cache["pos"]) != max_len - H_SLACK:
+            raise AssertionError(f"{model.cfg.name}: cache position {int(cache['pos'])}, expected {max_len - H_SLACK}")
+        return outs, toks, secs, launched
+
+    def breakdown(model, params, batch, max_len):
+        """One profiled (encode,) prefill and decode step: the card's time in
+        kernels, the kernel launches and the three costliest kernels of each
+        phase (torch.profiler, which stretches the host clock: the walls come
+        from the unprofiled run).  ``card_ms`` is None when the profiler sees
+        no device activity."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def phase(fn):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                sync()
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            self_us = [getattr(e, "self_device_time_total", 0) for e in kernels]
+            top = sorted(zip(self_us, kernels), key=lambda t: -t[0])[:3]
+            return out, {"card_ms": sum(self_us) / 1e3 if kernels else None,
+                         "kernels": sum(e.count for e in kernels),
+                         "top": [[e.key[:48], us / 1e3] for us, e in top]}
+
+        cache = model.make_cache(LM_BATCH, max_len, device=dev)
+        batch, res = dict(batch), {}
+        if "frames" in batch:
+            frames = batch.pop("frames")
+            batch["enc_kv"], res["encode"] = phase(lambda: model.encode(params, frames))
+        (logits, cache), res["prefill"] = phase(lambda: model.prefill(params, batch, cache))
+        step = {"tokens": logits.argmax(dim=-1, keepdim=True)}
+        if "enc_kv" in batch:
+            step["enc_kv"] = batch["enc_kv"]
+        _, res["decode"] = phase(lambda: model.decode_step(params, step, cache))
+        return res
+
+    def layer_kinds(cfg):
+        if cfg.family == "hybrid":
+            pat = cfg.rglru.pattern
+            return list(pat) * (cfg.n_layers // len(pat)) + [pat[r] for r in range(cfg.n_layers % len(pat))]
+        return ["ssm" if cfg.family == "ssm" else "attn"] * cfg.n_layers
+
+    def expected(cfg, dtype):
+        """The launches each phase must make, and nothing else."""
+        kinds = layer_kinds(cfg)
+        fk = flash_key[dtype]
+        if cfg.is_encdec:  # encoder; decoder self + cross; the cross attention of every step
+            return {"encode": {fk: cfg.n_encoder_layers}, "prefill": {fk: 2 * cfg.n_layers},
+                    "decode": {fk: cfg.n_layers * H_STEPS}}
+        pre = {fk: kinds.count("attn"), rglru_ops.KERNEL.key: kinds.count("rglru")}
+        return {"prefill": {k: n for k, n in pre.items() if n}, "decode": {}}
+
+    def rel_diff(a, b, vocab):
+        a, b = a[:, :vocab], b[:, :vocab]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"logits of shape {tuple(a.shape)} against {tuple(b.shape)}, or non-finite")
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    def compare(name, dtype, outs, ref_outs, vocab, held):
+        """The largest difference over the steps: relative to the largest logit
+        in bf16 (held to LM_BF16_REL when ``held``), absolute in float32 (held
+        to rtol 2e-2, atol 2e-3)."""
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(outs, ref_outs)):
+            if dtype == "bfloat16":
+                rel = rel_diff(a, b, vocab)
+                worst = max(worst, rel)
+                if held and not rel <= LM_BF16_REL:
+                    raise AssertionError(f"{name} bfloat16 step {i}: max |diff| {rel:.3e} of max |logit|")
+            else:
+                a, b = a[:, :vocab], b[:, :vocab]
+                worst = max(worst, float((a - b).abs().max()))
+                if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=2e-2, atol=2e-3)):
+                    raise AssertionError(f"{name} float32 step {i}: differs from the plain run by {worst:.3e}")
+        return worst
+
+    def shadowed(cfg, params, batch, max_len, toks):
+        """A teacher-forced rerun in which every flash call is also computed by
+        its plain version on the same inputs, the model's own activations, and
+        held there at FLASH_TOL (against a float64 plain run for float32
+        inputs); the plain rerun holds the RG-LRU scan likewise.  These
+        launches are comparisons, not the path's.  Returns {kernel: (calls,
+        max abs err)}."""
+        seen = {}
+        kernel_attention = flash_ops.flash_attention
+
+        def note(key, err):
+            calls, worst = seen.get(key, (0, 0.0))
+            seen[key] = (calls + 1, max(worst, err))
+
+        def attention(q, k, v, **kw):
+            o = kernel_attention(q, k, v, **kw)
+            work = (lambda x: x.double()) if q.dtype == torch.float32 else (lambda x: x)
+            ref = flash_attention_ref(work(q), work(k), work(v), **kw).double()
+            tol = FLASH_TOL["float32" if q.dtype == torch.float32 else "bfloat16"]
+            err = float((o.double() - ref).abs().max())
+            if not (torch.isfinite(o).all() and torch.allclose(o.double(), ref, rtol=tol, atol=tol)):
+                raise AssertionError(f"{cfg.name} {cfg.dtype}: flash at q {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+                                     f"differs from its plain version on the model's activations by {err:.3e}")
+            note(flash_key[cfg.dtype], err)
+            return o
+
+        # decode steps only where decode launches a kernel (the enc-dec cross attention)
+        steps = H_STEPS if cfg.is_encdec else 0
+        flash_ops.flash_attention = attention  # the models import it at each call
+        try:
+            serve(build_model(cfg), params, batch, max_len - H_STEPS + steps, steps, forced=toks, step_extra={})
+        finally:
+            flash_ops.flash_attention = kernel_attention
+        return seen
+
+    shapes = {}  # (arch, label, dtype) -> (q or scan shape, kv shape or None, options, launches on the path)
+    path_launches = {}  # (arch, dtype) -> the timed run's launches by phase
+    for arch, prompt_len, dtypes in H_MODELS:
+        cfg0 = dataclasses.replace(configs[arch], attention_impl="flash")
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_b, total_b = torch.cuda.mem_get_info()
+        if arch == "moonshot-v1-16b-a3b":  # bf16 weights drawn directly: no float32 master beside them
+            cfg0 = dataclasses.replace(cfg0, param_dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        log(f"path lm_families: {arch}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held before it, "
+            f"{free_b / 1e9:.1f} of {total_b / 1e9:.1f} GB free")
+        master = build_model(cfg0).init_params(gen.manual_seed(0), device=dev)
+        extra = cfg0.encoder_seq if cfg0.frontend == "vision" else 0
+        max_len = extra + prompt_len + H_STEPS + H_SLACK
+        gen.manual_seed(5)
+        batch = {"tokens": torch.randint(0, cfg0.vocab, (LM_BATCH, prompt_len), generator=gen, device=dev)}
+        if cfg0.frontend == "vision":
+            batch["patches"] = torch.randn((LM_BATCH, cfg0.encoder_seq, cfg0.d_model), generator=gen, device=dev)
+        if cfg0.is_encdec:
+            batch["frames"] = torch.randn((LM_BATCH, cfg0.encoder_seq, cfg0.d_model), generator=gen, device=dev)
+        for dtype in dtypes:
+            cfg = dataclasses.replace(cfg0, dtype=dtype)
+            model = build_model(cfg)
+            params = model.serving_params(master) if cfg.param_dtype != dtype else master
+            step_extra = {}
+            serve(model, params, batch, max_len - H_STEPS + 2, 2, step_extra=step_extra)  # warm-up
+            outs, toks, secs, launched = serve(model, params, batch, max_len, H_STEPS, step_extra=step_extra)
+            want = expected(cfg, dtype)
+            if launched != want:
+                raise AssertionError(f"{arch} {dtype}: launches {launched}, expected exactly {want}")
+            if cfg.family == "ssm":
+                # no kernel on this path: held against the teacher-forced
+                # full-sequence forward, itself a plain version
+                seq = torch.cat([batch["tokens"]] + toks, dim=1)
+                full, _ = model.forward(params, {"tokens": seq})
+                ref_outs = [full[:, prompt_len - 1 + i] for i in range(H_STEPS + 1)]
+                plain_what, spread, shadow = "the teacher-forced forward over the whole sequence", None, {}
+                del full
+            else:
+                scans = []
+
+                def plain_scan(a, b, h0=None):
+                    """The plain loop, and the kernel held to its bits on the same inputs."""
+                    y = rglru_scan_ref(a, b, h0)
+                    if not torch.equal(rglru_ops.rglru_scan(a, b, h0), y):
+                        raise AssertionError(f"{arch}: rglru_scan at {tuple(a.shape)} is not the plain loop's "
+                                             f"bits on the model's activations")
+                    scans.append(tuple(a.shape))
+                    return y
+
+                plain = build_model(dataclasses.replace(cfg, attention_impl="chunked"), plain_scan)
+                ref_outs, _, plain_secs, plain_launched = serve(plain, params, batch, max_len, H_STEPS, forced=toks,
+                                                                step_extra={})
+                if {k: n for k, n in plain_launched["prefill"].items() if k != rglru_ops.KERNEL.key} or any(
+                        plain_launched["decode"].values()) or len(scans) != plain_launched["prefill"].get(
+                            rglru_ops.KERNEL.key, 0):
+                    raise AssertionError(f"{arch} {dtype}: the plain rerun launched {plain_launched}")
+                plain_what = (f"a teacher-forced rerun through chunked attention{', rglru_scan_ref' if cfg.rglru else ''}"
+                              f" (prefill {plain_secs['prefill'] * 1e3:.1f} ms)")
+                spread = None
+                if dtype == "bfloat16":
+                    # the spread of two plain attentions in this dtype: the naive prefill against the
+                    # chunked one (the scan through the kernel, which gives the plain loop's bits)
+                    naive = build_model(dataclasses.replace(cfg, attention_impl="naive"))
+                    spread = rel_diff(serve(naive, params, batch, extra + prompt_len + H_SLACK, 0,
+                                            step_extra={})[0][0], ref_outs[0], cfg.vocab)
+                shadow = shadowed(cfg, params, batch, max_len, toks)
+                if scans:
+                    shadow[rglru_ops.KERNEL.key] = (len(scans), 0.0)
+                if {k: c for k, (c, _e) in shadow.items()} != dict(sum(map(Counter, launched.values()), Counter())):
+                    raise AssertionError(f"{arch} {dtype}: the shadowed rerun compared {shadow}, the path launched "
+                                         f"{launched}")
+            # bf16 logits are held to LM_BF16_REL only where two plain attentions
+            # agree within half of it: elsewhere the bf16 rounding of a random
+            # model moves the logits more than any kernel could be held to, and
+            # the kernels are held call by call on the model's activations
+            held = dtype == "float32" or (spread is not None and spread <= LM_BF16_REL / 2)
+            worst = compare(arch, dtype, outs, ref_outs, cfg.vocab, held)
+            if dtype == dtypes[0]:
+                walls_ms = {"encode": secs.get("encode", 0) * 1e3, "prefill": secs["prefill"] * 1e3,
+                            "decode": secs["decode"] / H_STEPS * 1e3}
+                for ph, b in breakdown(model, params, batch, max_len).items():
+                    idle = "not measured" if b["card_ms"] is None else f"{1 - b['card_ms'] / walls_ms[ph]:.3f}"
+                    card_ms = "not measured" if b["card_ms"] is None else f"{b['card_ms']:.2f} ms"
+                    log(f"breakdown {arch} {dtype} {ph}: card time in kernels {card_ms} (torch.profiler) in a "
+                        f"{walls_ms[ph]:.2f} ms wall{' a step' if ph == 'decode' else ''} (device idle share "
+                        f"{idle}); {b['kernels']} kernel launches; costliest {b['top']} -- {card}")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            wgb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+            enc = f"encode {secs['encode'] * 1e3:.1f} ms, " if "encode" in secs else ""
+            log(f"path lm_families: {arch} ({cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}) {dtype}, "
+                f"attention_impl=flash, batch {LM_BATCH}, prompt {prompt_len}{f' + {extra} patches' if extra else ''}, "
+                f"{H_STEPS} greedy decode steps; launches {launched}")
+            if dtype == "float32":
+                limit = "rtol 2e-2, atol 2e-3"
+            elif held:
+                limit = f"limit {LM_BF16_REL:g}; the naive and chunked prefills {spread:.3e} apart"
+            elif spread is None:
+                limit = "not held: both runs are plain"
+            else:
+                limit = f"not held: the naive and chunked prefills are {spread:.3e} apart, over half of {LM_BF16_REL:g}"
+            log(f"lm_families {arch} {dtype}: {enc}prefill {secs['prefill'] * 1e3:.1f} ms; decode "
+                f"{secs['decode'] / H_STEPS * 1e3:.2f} ms per step, {LM_BATCH * H_STEPS / secs['decode']:.1f} tokens/s; "
+                f"weights {wgb:.2f} GB {cfg.param_dtype if params is master else dtype}; peak device memory "
+                f"{peak_gb:.2f} GB; against {plain_what}: max {'|diff| / max |logit|' if dtype == 'bfloat16' else 'abs diff'}"
+                f" {worst:.3e} ({limit}); every kernel call against its plain version on the same activations "
+                f"(calls, max abs err): {shadow} (host clock, synchronized) -- {card}")
+            path_launches[(arch, dtype)] = launched
+            del outs, ref_outs, params, model
+        del master
+        # the attention and scan shapes this model ran, for the times below
+        if cfg0.family == "ssm":
+            continue
+        hd, h, kh = cfg0.resolved_head_dim, cfg0.n_heads, cfg0.n_kv_heads
+        s_in = extra + prompt_len
+        for dtype in dtypes:
+            n = path_launches[(arch, dtype)]
+            fk = flash_key[dtype]
+            if cfg0.is_encdec:
+                se = cfg0.encoder_seq
+                shapes[(arch, "encoder", dtype)] = ((LM_BATCH, se, h, hd), (LM_BATCH, se, kh, hd),
+                                                    {"causal": False}, n["encode"][fk])
+                shapes[(arch, "decoder", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd),
+                                                    {"causal": True}, cfg0.n_layers)
+                shapes[(arch, "cross", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, se, kh, hd),
+                                                  {"causal": False}, cfg0.n_layers)
+                shapes[(arch, "cross_decode", dtype)] = ((LM_BATCH, 1, h, hd), (LM_BATCH, se, kh, hd),
+                                                         {"causal": False}, n["decode"][fk])
+            else:
+                opts = {"causal": True, **({"window": cfg0.sliding_window} if cfg0.sliding_window else {})}
+                shapes[(arch, "prefill", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd), opts,
+                                                    n["prefill"][fk])
+            if cfg0.rglru is not None:  # float32 whatever the model's dtype
+                dr = cfg0.rglru.d_rnn or int(1.5 * cfg0.d_model)
+                shapes[(arch, f"rglru.{dtype}", dtype)] = ((LM_BATCH, s_in, dr), None, {},
+                                                           n["prefill"][rglru_ops.KERNEL.key])
+
+    # ---- times: every new kernel shape of the path, beside its plain version, SDPA and its bound
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+
+    def normal(shape, dtype, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(getattr(torch, dtype))
+
+    for (arch, label, dtype), (q_shape, kv_shape, opts, n_launch) in shapes.items():
+        if label.startswith("rglru"):
+            gen.manual_seed(41)
+            a = 0.5 + 0.499 * torch.rand(q_shape, generator=gen, device=dev)
+            b, h0 = normal(q_shape, "float32", 42), normal((q_shape[0], q_shape[2]), "float32", 43)
+            launch = rglru_ops.prepare(a, b, h0)
+            ms = cuda_ms(launch, iters=20)
+            err = float((launch().float() - rglru_scan_ref(a, b, h0)).abs().max())
+            plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b, h0), iters=1, warmup=1)
+            nbytes, flops = 4 * (3 * a.numel() + h0.numel()), 2 * a.numel()
+            t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+            lib_ms, lib_text = None, "no single PyTorch call"
+            name = f"rglru_scan.{arch}.{dtype}_model"
+            if err > RGLRU_TOL["float32"]:
+                raise AssertionError(f"{name}: the kernel differs from the plain loop by {err:.3e}")
+            del a, b, h0
+        else:
+            q, k, v = normal(q_shape, dtype, 31), normal(kv_shape, dtype, 32), normal(kv_shape, dtype, 33)
+            launch = flash_ops.prepare(q, k, v, **opts)
+            ms = cuda_ms(launch, iters=10)
+            work = (lambda x: x.double()) if dtype == "float32" else (lambda x: x)
+            ref = flash_attention_ref(work(q), work(k), work(v), **opts)
+            got = launch()
+            err = float((got.double() - ref.double()).abs().max())
+            tol = FLASH_TOL[dtype]
+            if not (torch.isfinite(got).all() and torch.allclose(got.double(), ref.double(), rtol=tol, atol=tol)):
+                raise AssertionError(f"flash {arch} {label} {dtype}: the kernel differs from the plain version by {err:.3e}")
+            del ref, got
+            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **opts), iters=1, warmup=1)
+            # SDPA in (B, H, S, Dh), the KV heads expanded, the window as an explicit boolean mask
+            rep = q_shape[2] // kv_shape[2]
+            qt, kt, vt = (x.transpose(1, 2).repeat_interleave(r, dim=1).contiguous() for x, r in ((q, 1), (k, rep), (v, rep)))
+            sq, skv = q_shape[1], kv_shape[1]
+            qpos, kpos = torch.arange(sq, device=dev)[:, None], torch.arange(skv, device=dev)[None, :]
+            if "window" in opts:
+                mask = (kpos <= qpos) & (kpos > qpos - opts["window"])
+                sdpa_kw = {"attn_mask": mask}
+            else:
+                mask = (kpos <= qpos) if opts["causal"] else torch.ones((sq, skv), dtype=torch.bool, device=dev)
+                sdpa_kw = {"is_causal": opts["causal"]}
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+            lib_ms = cuda_ms(sdpa, iters=10)
+            lib_diff = float((sdpa().transpose(1, 2).double() - launch().double()).abs().max())
+            if not lib_diff <= (FLASH_TOL["bfloat16"] if dtype == "bfloat16" else 1e-4):
+                raise AssertionError(f"flash {arch} {label}: SDPA computes another function ({lib_diff:.3e})")
+            pairs = int(mask.sum()) * q_shape[0] * q_shape[2]  # (q, k) pairs this run's masks keep
+            flops = 4 * q_shape[3] * pairs
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FLOPS["float32"]
+            t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+            lib_text = f"SDPA {lib_ms:.4f} ms (max abs diff from the kernel {lib_diff:.3e})"
+            name = f"flash_attention{'_float32' if dtype == 'float32' else ''}.{arch}.{label}"
+            del q, k, v, qt, kt, vt, mask
+        bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        log(f"time {name} {q_shape}{'' if kv_shape is None else f' kv {kv_shape}'} {'float32' if kv_shape is None else dtype} "
+            f"{opts}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, {lib_text}, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); max_abs_err {err:.3e}; launches on the "
+            f"path {n_launch} -- {card}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/rglru/csrc/rglru_scan.cu" if kv_shape is None else
+                       "src/repro_torch/kernels/flash_attention/csrc/"
+                       + ("flash_fwd_sm90.cu" if dtype == "bfloat16" else "flash_fwd.cu")),
+            "replaces": ("src/repro/kernels/rglru/kernel.py:62" if kv_shape is None else
+                         "src/repro/kernels/flash_attention/kernel.py:153"),
+            "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "model": arch, "model_dtype": dtype,
+        })
+        del launch
+    return rows
+
+
+def paths_a_to_g():
+    """Phases 1-5 for paths A-G. Returns the kernels' report rows, the phases'
+    walls and the card's name and power limit; what the paths held is freed
+    when this returns."""
+    import torch
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -718,8 +1139,8 @@ def main() -> int:
     if not np.allclose(fs_k["phi"].to_numpy(), fs_n["phi"].to_numpy(), rtol=1e-12, atol=1e-12):
         raise AssertionError("climate step: the kernels differ from the numpy backend")
 
-    # path C: LM serving, phi3-mini-3.8b at full width and depth, random weights
-    lm_cfg = dataclasses.replace(lm_full, attention_impl="flash")
+    # path C: LM serving, phi3-mini-3.8b at full width (depth LM_LAYERS), random weights
+    lm_cfg = dataclasses.replace(lm_full, attention_impl="flash", n_layers=LM_LAYERS)
     lm = build_model(lm_cfg)
     master = lm.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)  # float32
     served = lm.serving_params(master)  # cast once to bfloat16 for serving
@@ -769,7 +1190,7 @@ def main() -> int:
     if sum(dec_launch.values()) != 0:
         raise AssertionError(f"LM decode: launches {dec_launch}, expected none (decode attends with naive)")
     cache_gb = 2 * lm_cfg.n_layers * LM_BATCH * max_len * lm_cfg.n_kv_heads * lm_hd * 2 / 1e9
-    log(f"path lm_serve: {LM_ARCH} ({lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
+    log(f"path lm_serve: {LM_ARCH} ({lm_cfg.n_layers} of {lm_full.n_layers} layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} heads, "
         f"head_dim {lm_hd}) bfloat16, attention_impl=flash, batch {LM_BATCH}, prompt {LM_PROMPT}, "
         f"{LM_STEPS} greedy decode steps; launches: prefill {ran(pre_launch)}, decode {sum(dec_launch.values())}")
     log(f"lm_serve: prefill {prefill_s * 1e3:.1f} ms; decode {decode_s / LM_STEPS * 1e3:.2f} ms per step, "
@@ -1493,6 +1914,23 @@ def main() -> int:
         "ms_bfloat16": rglru_bf16_ms, "bound_ms_bfloat16": rglru_bf16_bound,
     })
     walls.mark("times")
+    return report, walls, card
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+
+    report, walls, card = paths_a_to_g()
+    # path H runs after every earlier path's tensors are freed: Moonlight's
+    # bf16 weights alone take 57.8 GB
+    report += lm_families(torch.device("cuda"), card, {arch: get_arch(arch).full for arch, _p, _d in H_MODELS})
+    walls.mark("path H and its times")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,4 +1,4 @@
-"""Attention: GQA + RoPE, causal / sliding-window, three impls.
+"""Attention: GQA + RoPE, causal / sliding-window / cross, three impls.
 
 * ``naive``   — materializes the (S, S) scores; the reference for tests.
 * ``chunked`` — a loop over KV chunks with an online softmax (flash-style in
@@ -224,6 +224,19 @@ def self_attention(
     else:
         o = attend(q, k, v, impl=impl, causal=causal, window=window, cap=cap, chunk=chunk)
     return out_project(params, o), new_cache
+
+
+def cross_attention(params, x, enc_kv: Tuple[torch.Tensor, torch.Tensor], impl: str, chunk: int = 1024):
+    """Decoder cross-attention against precomputed encoder K/V (non-causal;
+    one query row a step in decode)."""
+    q = _project(x, params["wq"]["kernel"])
+    k, v = enc_kv
+    o = attend(q, k, v, impl=impl, causal=False, chunk=chunk)
+    return out_project(params, o)
+
+
+def encoder_kv(params, enc_out) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _project(enc_out, params["wk"]["kernel"]), _project(enc_out, params["wv"]["kernel"])
 
 
 def make_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int, dtype,

@@ -1,9 +1,11 @@
 """Carry the reference package's weights and KV caches into the port.
 
 The reference holds parameters as a nested dict of arrays, each layer stack
-stacked along a leading axis (``decoder/blocks``, ``decoder/groups``,
-``encoder/blocks``); the port holds a :class:`ParamTree` with one subtree per
-layer.  Pass ``np.asarray`` of every leaf (``jax.tree_util.tree_map(np.asarray,
+stacked along a leading axis (``decoder/blocks``, the hybrid's
+``decoder/groups``, ``encoder/blocks``); the port holds a :class:`ParamTree`
+with one subtree per layer (a hybrid group's three layers in one subtree, the
+``tail_*`` layers as they are, MoE expert tensors (E, ...) per layer).
+Caches keep the reference's stacked layout in both packages.  Pass ``np.asarray`` of every leaf (``jax.tree_util.tree_map(np.asarray,
 params)``): this module imports neither JAX nor the reference.
 
 Like every entry point of the port, these put what they carry on the card
@@ -29,7 +31,9 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # a copy: JAX hands out read-only views of its own buffers, and the port
+    # writes caches in place
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def _leaf(tree: Any):
@@ -63,9 +67,17 @@ def params_from_reference(tree: Dict[str, Any], device="cuda") -> ParamTree:
 
 
 def cache_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """The reference's dense KV cache ({'layers': {'k', 'v': (L, B, Smax, Kh,
-    Dh)}, 'pos': ()}, numpy leaves) as the port's cache."""
-    return {
-        "layers": {n: to_tensor(tree["layers"][n], device) for n in ("k", "v")},
-        "pos": torch.tensor(int(np.asarray(tree["pos"])), dtype=torch.int32, device=device),
-    }
+    """The reference's serving cache (numpy leaves) as the port's, which keeps
+    its layout: each layer stack's state (KV, conv tails, recurrent states)
+    stacked along a leading axis, e.g. ``{'layers': {'k', 'v': (L, B, Smax,
+    Kh, Dh)}, 'pos': ()}`` or the hybrid's ``{'groups': {...}, 'tail_*': {...},
+    'pos': ()}``; 'pos' becomes a 0-d int32 tensor."""
+
+    def carry(key: str, node: Any) -> Any:
+        if key == "pos":
+            return torch.tensor(int(np.asarray(node)), dtype=torch.int32, device=device)
+        if isinstance(node, dict):
+            return {k: carry(k, v) for k, v in node.items()}
+        return to_tensor(node, device)
+
+    return {k: carry(k, v) for k, v in tree.items()}

@@ -3,15 +3,16 @@
 ``build_model(cfg)`` returns an :class:`LM` whose methods are functions of
 (params, batch[, cache]), as in the reference package; ``params`` is the
 :class:`~repro_torch.models.layers.ParamTree` that ``init_params`` makes (or
-``convert.params_from_reference`` carries over from the reference).  The
-dense family runs (forward, loss and the serving path ``make_cache →
-prefill → decode_step``); the other families raise ``NotImplementedError``.
+``convert.params_from_reference`` carries over from the reference).  Every
+family runs ``forward``, ``loss`` and the serving path ``make_cache →
+prefill → decode_step``: dense, moe, ssm (Mamba-2), hybrid (RecurrentGemma),
+the enc-dec audio model and the vlm.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +20,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 
+from repro_torch.kernels.rglru import ops as rglru_ops
+
+from . import attention as attn_mod
 from . import frontends, transformer
 from .layers import (
     ParamSpec,
@@ -32,14 +36,30 @@ from .layers import (
     unembed,
 )
 
-# the subtrees whose leaves the layers read in float32 (norm scales and
-# biases); every other leaf is cast to the activation dtype where it is used
-_NORM_KEYS = frozenset({"ln", "ln1", "ln2", "ln_x", "final_norm", "enc_norm"})
+from .rglru import Scan, make_rglru_cache
+from .ssm import make_ssd_cache
+
+# the subtrees and leaves the layers read in float32 whatever the activation
+# dtype (norm scales and biases, the MoE router, the RG-LRU gate vectors, the
+# SSM's decay, skip and norm vectors); every other leaf is cast to the
+# activation dtype where it is used
+_FLOAT32_KEYS = frozenset({
+    "ln", "ln1", "ln2", "ln_x", "final_norm", "enc_norm", "router",
+    "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate", "lambda_param",
+    "A_log", "D", "dt_bias", "norm_scale",
+})
+
+
+def _reads_float32(path: str) -> bool:
+    return bool(_FLOAT32_KEYS.intersection(path.split("/")))
 
 
 @dataclass
 class LM:
     cfg: ArchConfig
+    # the hybrid's RG-LRU recurrence over a prompt: the kernel op, or its
+    # plain version (``kernels.rglru.ref.rglru_scan_ref``) for a comparison
+    rglru_scan: Scan = rglru_ops.rglru_scan
 
     # ------------------------------------------------------------------ specs
 
@@ -65,34 +85,48 @@ class LM:
         return spec
 
     def init_params(self, generator: Optional[torch.Generator] = None, device="cuda") -> ParamTree:
-        """Random weights in ``param_dtype`` on ``device``, from the seed of
-        ``generator`` (0 when absent)."""
-        return init_param_tree(self.param_specs(), generator, device)
+        """Random weights on ``device``, from the seed of ``generator`` (0 when
+        absent), in ``cfg.param_dtype`` except the leaves the layers read in
+        float32.  Each leaf is drawn in float32 and rounded once, so a
+        bfloat16 init equals ``serving_params`` of the float32 one (with
+        ``cfg.dtype`` bfloat16) without holding a float32 copy."""
+        specs = self.param_specs()
+        pdt = self.cfg.param_dtype
+        if pdt != "float32":
+            specs = map_tree(lambda path, sp: sp if _reads_float32(path) else replace(sp, dtype=pdt), specs)
+        return init_param_tree(specs, generator, device)
 
     def serving_params(self, params: ParamTree) -> ParamTree:
         """The weights cast once to the activation dtype ``cfg.dtype``, for
         serving: every leaf the layers cast to the activation dtype where they
-        use it (``.to(x.dtype)``) is cast here instead, and the norms stay in
-        their own dtype.  The cast is the same elementwise rounding, so the
-        logits are the same bits as with ``params``."""
+        use it (``.to(x.dtype)``) is cast here instead, and the leaves they
+        read in float32 stay in their own dtype.  The cast is the same
+        elementwise rounding, so the logits are the same bits as with
+        ``params``."""
         dt = getattr(torch, self.cfg.dtype)
 
         def cast(path: str, t: torch.Tensor) -> torch.Tensor:
-            return t if _NORM_KEYS.intersection(path.split("/")) else t.to(dt)
+            return t if _reads_float32(path) else t.to(dt)
 
         return ParamTree(map_tree(cast, params.to_tree()))
 
     # ------------------------------------------------------------ embeddings
 
-    def _check_family(self) -> None:
-        cfg = self.cfg
-        if cfg.is_encdec or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: the enc-dec/vlm frontends are not ported yet (ROADMAP.md, Queue 1, LM stack)")
-        transformer.check_ported(cfg)
-
     def _embed_inputs(self, params, batch) -> torch.Tensor:
-        return embed(params["embed"], batch["tokens"], getattr(torch, self.cfg.dtype))
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], getattr(torch, cfg.dtype))
+        if cfg.frontend == "vision" and "patches" in batch:
+            pe = frontends.apply_frontend(params["frontend"], cfg, batch["patches"])
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    def _embed_decoder(self, params, tokens, pos) -> torch.Tensor:
+        """The enc-dec decoder's inputs: token embeddings plus the learned
+        positions ``pos ..`` (``pos`` an int or a 0-d tensor)."""
+        dt = getattr(torch, self.cfg.dtype)
+        x = embed(params["embed"], tokens, dt)
+        posids = pos + torch.arange(x.shape[1], device=x.device)
+        return x + params["dec_pos_embed"][posids].to(dt)[None]
 
     def _logits(self, params, x) -> torch.Tensor:
         cfg = self.cfg
@@ -109,19 +143,40 @@ class LM:
             logits = torch.where(pad_mask, logits, -1e30)
         return logits
 
+    def encode(self, params, frames) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Enc-dec: the encoder over ``frames`` (B, S_enc, d_model) and each
+        decoder layer's cross K/V (the reference's ``_cross_kv``, a list per
+        layer where it stacks them).  Pass it as ``batch["enc_kv"]`` to
+        ``prefill`` and ``decode_step`` to encode once per request."""
+        cfg = self.cfg
+        _, norm = make_norm(cfg.norm)
+        enc = transformer.encoder_stack(params["encoder"], frontends.apply_frontend(params["frontend"], cfg, frames),
+                                        cfg)
+        enc = norm(params["enc_norm"], enc)
+        return [attn_mod.encoder_kv(lp["xattn"], enc) for lp in params["decoder"]["blocks"]]
+
     # ----------------------------------------------------------------- train
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full-sequence logits. batch: tokens (B, S)."""
-        self._check_family()
+        """Full-sequence logits. batch: tokens (B, S) [+ frames / patches]."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            enc_kv = self.encode(params, batch["frames"])
+            x = self._embed_decoder(params, batch["tokens"], 0)
+            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv)
+            return self._logits(params, x), {}
         x = self._embed_inputs(params, batch)
-        x, _, aux = transformer.decoder_stack(params["decoder"], x, self.cfg)
+        x, aux = transformer.decoder_stack(params["decoder"], x, cfg, scan=self.rglru_scan)
         return self._logits(params, x), aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token CE. batch needs 'labels' (B, S), -1 = masked."""
+        """Next-token CE (+ MoE aux). batch needs 'labels' (B, S), -1 = masked."""
         logits, aux = self.forward(params, batch)
         labels = batch["labels"].long()
+        if self.cfg.frontend == "vision" and "patches" in batch:
+            # image positions carry no LM loss
+            pads = torch.full(batch["patches"].shape[:2], -1, dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pads, labels], dim=1)
         mask = (labels >= 0).float()
         safe = torch.clamp_min(labels, 0)
         logp = F.log_softmax(logits, dim=-1)
@@ -138,41 +193,71 @@ class LM:
     # ----------------------------------------------------------------- serve
 
     def make_cache(self, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
-        """An empty KV cache for ``batch`` sequences of up to ``max_len``
-        tokens, in ``cfg.dtype`` on ``device``.  ``prefill`` and
-        ``decode_step`` write it in place."""
+        """An empty cache for ``batch`` sequences of up to ``max_len`` tokens,
+        in ``cfg.dtype`` on ``device``, in the reference's layout (each layer
+        stack's state stacked along a leading axis): KV caches, and the conv
+        tails and recurrent states of the ssm and rglru layers.  ``prefill``
+        and ``decode_step`` write it in place."""
         cfg = self.cfg
-        self._check_family()
         dt = getattr(torch, cfg.dtype)
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {
-            "layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)},
-            "pos": torch.zeros((), dtype=torch.int32, device=device),
-        }
+        hd = cfg.resolved_head_dim if cfg.n_heads else 0
+
+        def kv(*lead):
+            shape = lead + (batch, max_len, cfg.n_kv_heads, hd)
+            return {"k": torch.zeros(shape, dtype=dt, device=device), "v": torch.zeros(shape, dtype=dt, device=device)}
+
+        def stacked(base, *lead):
+            return {n: t.new_zeros(lead + tuple(t.shape)) for n, t in base.items()}
+
+        pos = torch.zeros((), dtype=torch.int32, device=device)
+        if cfg.family == "ssm":
+            return {"layers": stacked(make_ssd_cache(batch, cfg.d_model, cfg.ssm, dt, device), cfg.n_layers),
+                    "pos": pos}
+        if cfg.family == "hybrid":
+            pat = cfg.rglru.pattern
+
+            def layer(kind, *lead):
+                if kind == "rglru":
+                    return stacked(make_rglru_cache(batch, cfg.d_model, cfg.rglru, dt, device), *lead)
+                return kv(*lead)
+
+            cache: Dict[str, Any] = {
+                "groups": {f"{i}_{kind}": layer(kind, cfg.n_layers // len(pat)) for i, kind in enumerate(pat)},
+                "pos": pos,
+            }
+            for r in range(cfg.n_layers % len(pat)):
+                kind = pat[r % len(pat)]
+                cache[f"tail_{r}_{kind}"] = layer(kind)
+            return cache
+        return {"layers": kv(cfg.n_layers), "pos": pos}
 
     def prefill(self, params, batch, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Run the prompt through the model, filling ``cache`` (which must be
-        empty).  Returns (logits for the last position (B, vocab), cache)."""
+        empty).  Returns (logits for the last position (B, vocab), cache).
+        Enc-dec: ``batch`` holds 'frames' or the ``encode``d 'enc_kv'; vlm:
+        'patches' ahead of the tokens."""
         return self._serve(params, batch, cache)
 
     def decode_step(self, params, batch, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One-token step: batch['tokens'] is (B, 1)."""
+        """One-token step: batch['tokens'] is (B, 1) (enc-dec: with 'enc_kv' or 'frames')."""
         return self._serve(params, batch, cache)
 
     def _serve(self, params, batch, cache):
-        self._check_family()
+        cfg = self.cfg
         pos = cache["pos"]
-        x = self._embed_inputs(params, batch)
-        s = x.shape[1]
-        x, layers, _ = transformer.decoder_stack(params["decoder"], x, self.cfg,
-                                                 cache={**cache["layers"], "pos": pos})
+        if cfg.is_encdec:
+            enc_kv = batch["enc_kv"] if "enc_kv" in batch else self.encode(params, batch["frames"])
+            x = self._embed_decoder(params, batch["tokens"], pos)
+            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv, cache=cache)
+        else:
+            x = self._embed_inputs(params, batch)
+            x, _ = transformer.decoder_stack(params["decoder"], x, cfg, cache=cache, scan=self.rglru_scan)
         logits = self._logits(params, x[:, -1:, :])[:, 0]
-        return logits, {"layers": layers, "pos": pos + s}
+        return logits, {**{k: v for k, v in cache.items() if k != "pos"}, "pos": pos + x.shape[1]}
 
 
-def build_model(cfg: ArchConfig) -> LM:
-    return LM(cfg)
+def build_model(cfg: ArchConfig, rglru_scan: Scan = rglru_ops.rglru_scan) -> LM:
+    return LM(cfg, rglru_scan)
 
 
 def exact_param_count(cfg: ArchConfig) -> int:

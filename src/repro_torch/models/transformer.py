@@ -1,37 +1,28 @@
-"""Block definitions and layer stacks.
+"""Block definitions and layer stacks for every family.
 
 A Python loop over layers replaces the reference's ``lax.scan``; each
 layer's parameters are their own ``ParamTree`` (``stack_specs`` makes a list
 of per-layer specs, where the reference stacks them along a leading axis).
-The dense family (and command-r's parallel block) runs; the other families'
-blocks are specified, so that parameter counts cover every config, and raise
-``NotImplementedError`` when run.
+Caches keep the reference's layout, each layer stack's state stacked along a
+leading axis; layer ``i`` reads and writes its slice ``[i]`` in place.  The
+hybrid (RecurrentGemma) stack repeats (rglru, rglru, attn) groups, then
+runs the remainder as ``tail_*`` layers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.rglru import ops as rglru_ops
 
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import make_norm, mlp, mlp_spec
-
-_NOT_PORTED = {
-    "moe": "the moe layer",
-    "ssm": "the ssm (Mamba-2 SSD) block",
-    "hybrid": "the hybrid model path (rglru block, local attention)",
-}
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family whose blocks are not ported."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED[cfg.family]} is not ported yet (ROADMAP.md, Queue 1, LM stack)")
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +57,13 @@ def dense_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return spec
 
 
+def _ffn(params, h, cfg: ArchConfig):
+    if cfg.family == "moe":
+        return moe_mod.moe_layer(params["moe"], h, cfg.moe, cfg.activation)
+    return mlp(params["mlp"], h, cfg.activation), {}
+
+
 def dense_block(params, x, cfg: ArchConfig, *, cache=None, window=None, impl=None):
-    check_ported(cfg)
     _, norm = make_norm(cfg.norm)
     impl = impl or cfg.attention_impl
     h = norm(params["ln1"], x)
@@ -76,16 +72,22 @@ def dense_block(params, x, cfg: ArchConfig, *, cache=None, window=None, impl=Non
         impl=impl, window=window, chunk=cfg.attention_chunk, cache=cache,
     )
     if cfg.parallel_block:
-        x = x + attn_out + mlp(params["mlp"], h, cfg.activation)
-    else:
-        x = x + attn_out
-        x = x + mlp(params["mlp"], norm(params["ln2"], x), cfg.activation)
-    return x, new_cache, {}
+        ff_out, aux = _ffn(params, h, cfg)
+        return x + attn_out + ff_out, new_cache, aux
+    x = x + attn_out
+    ff_out, aux = _ffn(params, norm(params["ln2"], x), cfg)
+    return x + ff_out, new_cache, aux
 
 
 def ssm_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
     norm_spec, _ = make_norm(cfg.norm)
     return {"ln": norm_spec(cfg.d_model), "ssm": ssm_mod.ssd_spec(cfg.d_model, cfg.ssm)}
+
+
+def ssm_block(params, x, cfg: ArchConfig, *, cache=None):
+    _, norm = make_norm(cfg.norm)
+    y, new_cache = ssm_mod.ssd_block(params["ssm"], norm(params["ln"], x), cfg.ssm, cache=cache)
+    return x + y, new_cache, {}
 
 
 def rglru_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -97,6 +99,14 @@ def rglru_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
         "ln2": norm_spec(d),
         "mlp": mlp_spec(d, cfg.d_ff, cfg.activation, cfg.use_bias),
     }
+
+
+def rglru_block(params, x, cfg: ArchConfig, *, cache=None, scan: rglru_mod.Scan = rglru_ops.rglru_scan):
+    _, norm = make_norm(cfg.norm)
+    y, new_cache = rglru_mod.rglru_block(params["rec"], norm(params["ln1"], x), cfg.rglru, cache=cache, scan=scan)
+    x = x + y
+    x = x + mlp(params["mlp"], norm(params["ln2"], x), cfg.activation)
+    return x, new_cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -120,19 +130,66 @@ def decoder_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return {"blocks": stack_specs(dense_block_spec(cfg), cfg.n_layers)}
 
 
-def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, impl=None):
-    """Returns (x, new_cache, aux_losses).  ``cache``: {'k', 'v': (L, B, Smax,
-    Kh, Dh), 'pos': ()}; layer l reads and writes its slice ``[l]`` in place."""
-    check_ported(cfg)
+def _layer_cache(tree: Dict[str, torch.Tensor], i, pos) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s slice of a stacked cache subtree (the subtree itself when
+    ``i`` is None); a KV cache also gets the global position."""
+    c = dict(tree) if i is None else {n: t[i] for n, t in tree.items()}
+    if "k" in c:
+        c["pos"] = pos
+    return c
+
+
+def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, impl=None,
+                  scan: rglru_mod.Scan = rglru_ops.rglru_scan) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (x, aux_losses_summed).  ``cache`` is the model's (``LM.make_cache``,
+    its 'pos' the tokens already in it), written in place; ``scan`` runs the
+    hybrid's RG-LRU recurrence over a prompt."""
+    pos = None if cache is None else cache["pos"]
+
+    def layer_cache(*keys, i=None):
+        """One layer's cache: ``cache[keys...]``, its slice ``[i]`` when stacked."""
+        if cache is None:
+            return None
+        tree = cache
+        for k in keys:
+            tree = tree[k]
+        return _layer_cache(tree, i, pos)
+
+    def hybrid_layer(kind, lp, h, c):
+        if kind == "rglru":
+            return rglru_block(lp, h, cfg, cache=c, scan=scan)[0]
+        return dense_block(lp, h, cfg, cache=c, window=cfg.sliding_window, impl=impl)[0]
+
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["blocks"]):
+            x, _, _ = ssm_block(lp, x, cfg, cache=layer_cache("layers", i=i))
+        return x, {}
+
+    if cfg.family == "hybrid":
+        pat = cfg.rglru.pattern
+        for g, gp in enumerate(params["groups"]):
+            for i, kind in enumerate(pat):
+                key = f"{i}_{kind}"
+                x = hybrid_layer(kind, gp[key], x, layer_cache("groups", key, i=g))
+        for r in range(cfg.n_layers % len(pat)):
+            kind = pat[r % len(pat)]
+            key = f"tail_{r}_{kind}"
+            x = hybrid_layer(kind, params[key], x, layer_cache(key))
+        return x, {}
+
+    # dense / moe / vlm backbone
+    auxes: List[Dict[str, torch.Tensor]] = []
     for i, lp in enumerate(params["blocks"]):
-        c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
-        x, _, _ = dense_block(lp, x, cfg, cache=c, window=cfg.sliding_window, impl=impl)
-    new_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-    return x, new_cache, {}
+        x, _, aux = dense_block(lp, x, cfg, cache=layer_cache("layers", i=i),
+                                window=cfg.sliding_window, impl=impl)
+        auxes.append(aux)
+    if cfg.family != "moe":
+        return x, {}
+    return x, {k: torch.stack([a[k] for a in auxes]).sum() for k in ("load_balance_loss", "router_z_loss")}
 
 
 # ---------------------------------------------------------------------------
-# encoder-decoder (whisper-style): specs only
+# encoder-decoder (whisper-style)
 # ---------------------------------------------------------------------------
 
 
@@ -145,6 +202,17 @@ def encoder_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
         "ln2": norm_spec(d),
         "mlp": mlp_spec(d, cfg.d_ff, cfg.activation, cfg.use_bias),
     }
+
+
+def encoder_block(params, x, cfg: ArchConfig, impl=None):
+    _, norm = make_norm(cfg.norm)
+    h, _ = attn_mod.self_attention(
+        params["attn"], norm(params["ln1"], x), n_kv_heads=cfg.n_kv_heads,
+        rope_theta=None, impl=impl or cfg.attention_impl, causal=False,
+        chunk=cfg.attention_chunk,
+    )
+    x = x + h
+    return x + mlp(params["mlp"], norm(params["ln2"], x), cfg.activation)
 
 
 def xdec_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -160,9 +228,36 @@ def xdec_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
     }
 
 
+def xdec_block(params, x, cfg: ArchConfig, *, enc_kv, cache=None, impl=None):
+    """Decoder block with cross-attention. enc_kv: this layer's (k, v) from the encoder."""
+    _, norm = make_norm(cfg.norm)
+    impl = impl or cfg.attention_impl
+    h, _ = attn_mod.self_attention(
+        params["attn"], norm(params["ln1"], x), n_kv_heads=cfg.n_kv_heads,
+        rope_theta=None, impl=impl, chunk=cfg.attention_chunk, cache=cache,
+    )
+    x = x + h
+    x = x + attn_mod.cross_attention(params["xattn"], norm(params["ln_x"], x), enc_kv, impl, cfg.attention_chunk)
+    return x + mlp(params["mlp"], norm(params["ln2"], x), cfg.activation)
+
+
 def encoder_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return {"blocks": stack_specs(encoder_block_spec(cfg), cfg.n_encoder_layers)}
 
 
+def encoder_stack(params, x, cfg: ArchConfig, impl=None):
+    for lp in params["blocks"]:
+        x = encoder_block(lp, x, cfg, impl=impl)
+    return x
+
+
 def xdec_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return {"blocks": stack_specs(xdec_block_spec(cfg), cfg.n_layers)}
+
+
+def xdec_stack(params, x, cfg: ArchConfig, *, enc_kv, cache=None, impl=None):
+    """enc_kv: one (k, v) pair per decoder layer; ``cache`` the model's, written in place."""
+    for i, lp in enumerate(params["blocks"]):
+        c = None if cache is None else _layer_cache(cache["layers"], i, cache["pos"])
+        x = xdec_block(lp, x, cfg, enc_kv=enc_kv[i], cache=c, impl=impl)
+    return x

@@ -209,11 +209,13 @@ class Supervisor:
         return self.proc
 
     def wait_ready(self) -> bool:
-        """Poll the probe until ready; False if the child dies or the
-        readiness timeout expires first."""
+        """Poll the probe until ready; False if the child dies, ``stop()`` is
+        called or the readiness timeout expires first."""
         deadline = monotonic() + self.ready_timeout_s
         while monotonic() < deadline:
-            if self.proc is not None and self.proc.poll() is not None:
+            # stop() detaches the child (proc None): waiting on would probe a
+            # server that is gone until the deadline
+            if self._stopping or self.proc.poll() is not None:
                 return False
             if self.probe():
                 self._event("ready", pid=self.proc.pid if self.proc else None)
@@ -228,6 +230,8 @@ class Supervisor:
             self.spawn()
             if self.wait_ready():
                 self.policy.reset_backoff()
+                return
+            if self._stopping:
                 return
             self._crash_and_backoff("never became ready")
 

@@ -262,10 +262,3 @@ def test_configs_are_the_reference_configs():
 def test_exact_param_count_matches_reference(arch):
     assert exact_param_count(get_arch(arch).full) == r_exact_param_count(r_get_arch(arch).full)
     assert exact_param_count(get_arch(arch).reduced) == r_exact_param_count(r_get_arch(arch).reduced)
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-370m", "recurrentgemma-2b", "whisper-medium"])
-def test_families_not_ported_raise(arch):
-    model = build_model(get_arch(arch).reduced)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.make_cache(1, 8, device="cpu")

@@ -176,6 +176,30 @@ def test_stop_is_idempotent_and_detaches(tmp_path):
     assert proc.poll() is not None and sup.proc is None
 
 
+def test_stop_ends_a_wait_for_readiness():
+    """stop() while the supervisor waits for a (re)spawned child to probe
+    ready: start() returns at once, with no crash counted and no respawn,
+    instead of probing the stopped child until the readiness deadline."""
+    sup = Supervisor(
+        [sys.executable, "-c", "import time; time.sleep(60)"],
+        probe=lambda: False,
+        ready_timeout_s=60.0,
+        probe_interval_s=0.02,
+    )
+    runner = threading.Thread(target=sup.start, daemon=True)
+    runner.start()
+    deadline = time.monotonic() + 30.0
+    while sup.proc is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    proc = sup.proc
+    t0 = time.monotonic()
+    sup.stop()
+    runner.join(timeout=10.0)
+    assert not runner.is_alive() and time.monotonic() - t0 < 10.0
+    assert proc.poll() is not None and sup.proc is None
+    assert sup.stats == {"spawns": 1, "crashes": 0, "restarts": 0}
+
+
 # ---------------------------------------------------------------------------
 # the flight recorder rides the supervisor: outside-view bundles per restart
 # ---------------------------------------------------------------------------
