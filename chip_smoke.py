@@ -78,18 +78,21 @@ Phases, in order; any failure exits non-zero before the result line:
    after paths A-G have freed their memory): RecurrentGemma-2B (prompt
    4096, twice its window; bf16 and float32: 18 RG-LRU scans and 8 flash
    calls a prefill, none in decode), Moonlight-16B-A3B (bf16 weights drawn
-   directly, 57.8 GB; 48 flash calls), Mamba-2 370M (no kernel; against its
-   teacher-forced forward), Whisper-medium (1500 seeded frames encoded once: 24 flash
+   directly at full depth; float32 at 16 of its 48 layers; a flash call a
+   layer; the plain rerun replays the path's expert choices), Mamba-2 370M
+   (bf16, float32 and float64; no kernel; against its teacher-forced
+   forward), Whisper-medium (1500 seeded frames encoded once: 24 flash
    calls, then 48 in prefill and 24 a decode step, the one-query cross
    attention) and InternVL2-1B (256 seeded patches ahead of the 2048-token
-   prompt; 24 flash calls); each phase's launches asserted exactly; each
-   model against a teacher-forced rerun through the plain versions
-   (float32 at ``rtol=2e-2, atol=2e-3``; bf16 at ``LM_BF16_REL`` where the
-   naive and chunked attentions' prefills agree within half of it), and a
-   rerun holding every kernel call against its plain version on the model's
-   own activations; prefill and decode walls, tokens/s, peak memory, and a
-   ``torch.profiler`` breakdown of each phase (card time, launches, idle
-   share);
+   prompt; 24 flash calls); each phase's launches asserted exactly, and the
+   flash calls counted by shape; each model against a teacher-forced rerun
+   through the plain versions, the runs ``H_MODELS`` marks held failing
+   outside ``rtol=2e-2, atol=2e-3`` (float32, float64) or ``LM_BF16_REL``
+   (bf16), every bf16 run printed beside the spread of its naive and
+   chunked prefills, and a rerun holding every kernel call against its
+   plain version on the model's own activations; prefill and decode walls,
+   tokens/s, peak memory, and a ``torch.profiler`` breakdown of each
+   model's first run (card time, launches, idle share);
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -147,13 +150,23 @@ SERVE_STEPS, SERVE_EVERY = 10, 5  # steps a request, streamed (and warmed) every
 SERVE_CLIMATE, SERVE_FORECAST = 16, 5  # requests: one full 16-member window, and 5 padded to 8
 SERVE_ALONE = (0, 7, 15)  # climate requests rerun alone
 SWEEP_MEMBERS = 16
-# path H: (arch, prompt, dtypes), each at full width and depth, batch LM_BATCH
+# path H: (arch, prompt, runs), each at full width, batch LM_BATCH; a run is
+# (dtype, depth or None for the full one, whether its logits are held against
+# the plain rerun).  bf16 runs are held where the bf16 rounding of the random
+# model leaves the logits of two plain attentions well inside LM_BF16_REL (the
+# spread printed beside each bf16 run); each model has at least one held run.
 H_MODELS = (
-    ("recurrentgemma-2b", 4096, ("bfloat16", "float32")),  # twice the 2048 window
-    ("moonshot-v1-16b-a3b", 2048, ("bfloat16",)),
-    ("mamba2-370m", 2048, ("bfloat16",)),
-    ("whisper-medium", 64, ("bfloat16",)),  # and 1500 seeded frames
-    ("internvl2-1b", 2048, ("bfloat16",)),  # and 256 seeded patch embeddings
+    ("recurrentgemma-2b", 4096, (("bfloat16", None, False), ("float32", None, True))),  # twice the 2048 window
+    # bf16 weights drawn directly at full depth; float32 at 16 of 48 layers,
+    # as its full depth does not fit one card
+    ("moonshot-v1-16b-a3b", 2048, (("bfloat16", None, False), ("float32", 16, True))),
+    # float32 rounding alone moves Mamba-2's logits at full depth by more than
+    # atol 2e-3 (the float64 run prints how far): its decode path is held in
+    # float64 (the SSD too: ``ssm.ssd_block``), teacher-forced on the float32
+    # run's tokens
+    ("mamba2-370m", 2048, (("bfloat16", None, False), ("float32", None, False), ("float64", None, True))),
+    ("whisper-medium", 64, (("bfloat16", None, True),)),  # and 1500 seeded frames
+    ("internvl2-1b", 2048, (("bfloat16", None, True),)),  # and 256 seeded patch embeddings
 )
 H_STEPS = 32  # greedy decode steps
 H_SLACK = 8  # cache rows past the last token
@@ -214,8 +227,10 @@ def lm_families(dev, card: str, configs) -> list:
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
 
     flash_key = {"bfloat16": flash_ops.KERNEL_BF16.key, "float32": flash_ops.KERNEL.key}
+    kernel_top_k = moe_mod._top_k
     gen = torch.Generator(device=dev)
 
     def sync():
@@ -224,10 +239,50 @@ def lm_families(dev, card: str, configs) -> list:
     def counts():
         return {k: n for k, n in codegen_cuda.launch_counts().items() if n}
 
-    def serve(model, params, batch, max_len, steps, forced=None, step_extra=None):
+    def serve(model, params, batch, max_len, steps, forced=None, step_extra=None, tally=None, routes=None):
         """make_cache → (encode) → prefill → ``steps`` decode steps, greedy unless
         ``forced`` holds the tokens; host clock, synchronized.  Returns the
-        logits (prefill first), the tokens, seconds and launches per phase."""
+        logits (prefill first), the tokens, seconds and launches per phase.
+        ``tally``, a Counter, counts the flash calls by (q shape, k shape,
+        causal, window); ``routes`` (a ``Routes``) stands in for the MoE
+        layers' top-k."""
+        kernel_attention, top_k = flash_ops.flash_attention, moe_mod._top_k
+
+        def tallied(q, k, v, **kw):
+            tally[(tuple(q.shape), tuple(k.shape), kw["causal"], kw.get("window"))] += 1
+            return kernel_attention(q, k, v, **kw)
+
+        if tally is not None:
+            flash_ops.flash_attention = tallied  # the models import it at each call
+        if routes is not None:
+            moe_mod._top_k = routes  # looked up at each call, likewise
+        try:
+            return _serve(model, params, batch, max_len, steps, forced, step_extra)
+        finally:
+            flash_ops.flash_attention, moe_mod._top_k = kernel_attention, top_k
+
+    class Routes:
+        """The MoE layers' top-k, recording each call's expert ids; or, given
+        a recorded run, replaying its ids call for call (the gates from this
+        run's own probabilities) and counting the tokens whose own top-k
+        would have chosen other experts.  A plain rerun so takes the same
+        discrete routes as the path: a rounding that flips one of a token's
+        top-k experts moves the logits by far more than any tolerance."""
+
+        def __init__(self, recorded=None):
+            self.recorded, self.ids, self.flips, self.tokens = recorded, [], 0, 0
+
+        def __call__(self, probs, k):
+            vals, idx = kernel_top_k(probs, k)
+            if self.recorded is not None:
+                forced = self.recorded[len(self.ids)]
+                self.flips += int((idx.sort(-1).values != forced.sort(-1).values).any(-1).sum())
+                self.tokens += idx.numel() // k
+                vals, idx = torch.gather(probs, -1, forced), forced
+            self.ids.append(idx)
+            return vals, idx
+
+    def _serve(model, params, batch, max_len, steps, forced, step_extra):
         cache = model.make_cache(LM_BATCH, max_len, device=dev)
         secs, launched = {}, {}
         sync()
@@ -299,7 +354,7 @@ def lm_families(dev, card: str, configs) -> list:
     def expected(cfg, dtype):
         """The launches each phase must make, and nothing else."""
         kinds = layer_kinds(cfg)
-        fk = flash_key[dtype]
+        fk = flash_key.get(dtype)  # none for float64 (the attention-free Mamba-2 alone)
         if cfg.is_encdec:  # encoder; decoder self + cross; the cross attention of every step
             return {"encode": {fk: cfg.n_encoder_layers}, "prefill": {fk: 2 * cfg.n_layers},
                     "decode": {fk: cfg.n_layers * H_STEPS}}
@@ -312,23 +367,31 @@ def lm_families(dev, card: str, configs) -> list:
             raise AssertionError(f"logits of shape {tuple(a.shape)} against {tuple(b.shape)}, or non-finite")
         return float((a - b).abs().max()) / float(b.abs().max())
 
+    def max_abs(outs, ref_outs, vocab):
+        return max(float((a[:, :vocab].double() - b[:, :vocab].double()).abs().max()) for a, b in zip(outs, ref_outs))
+
     def compare(name, dtype, outs, ref_outs, vocab, held):
         """The largest difference over the steps: relative to the largest logit
-        in bf16 (held to LM_BF16_REL when ``held``), absolute in float32 (held
-        to rtol 2e-2, atol 2e-3)."""
-        worst = 0.0
+        in bf16, absolute in float32 and float64; when ``held``, each step held
+        to LM_BF16_REL in bf16, to rtol 2e-2, atol 2e-3 otherwise.  Returns it
+        and the largest share of its limit (|diff| / (atol + rtol |plain|)
+        outside bf16)."""
+        worst = share = 0.0
         for i, (a, b) in enumerate(zip(outs, ref_outs)):
             if dtype == "bfloat16":
                 rel = rel_diff(a, b, vocab)
-                worst = max(worst, rel)
+                worst, share = max(worst, rel), max(share, rel / LM_BF16_REL)
                 if held and not rel <= LM_BF16_REL:
                     raise AssertionError(f"{name} bfloat16 step {i}: max |diff| {rel:.3e} of max |logit|")
             else:
                 a, b = a[:, :vocab], b[:, :vocab]
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{name} {dtype} step {i}: non-finite logits")
                 worst = max(worst, float((a - b).abs().max()))
-                if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=2e-2, atol=2e-3)):
-                    raise AssertionError(f"{name} float32 step {i}: differs from the plain run by {worst:.3e}")
-        return worst
+                share = max(share, float(((a - b).abs() / (2e-3 + 2e-2 * b.abs())).max()))
+                if held and not torch.allclose(a, b, rtol=2e-2, atol=2e-3):
+                    raise AssertionError(f"{name} {dtype} step {i}: differs from the plain run by {worst:.3e}")
+        return worst, share
 
     def shadowed(cfg, params, batch, max_len, toks):
         """A teacher-forced rerun in which every flash call is also computed by
@@ -366,18 +429,8 @@ def lm_families(dev, card: str, configs) -> list:
         return seen
 
     shapes = {}  # (arch, label, dtype) -> (q or scan shape, kv shape or None, options, launches on the path)
-    path_launches = {}  # (arch, dtype) -> the timed run's launches by phase
-    for arch, prompt_len, dtypes in H_MODELS:
+    for arch, prompt_len, runs in H_MODELS:
         cfg0 = dataclasses.replace(configs[arch], attention_impl="flash")
-        gc.collect()
-        torch.cuda.empty_cache()
-        free_b, total_b = torch.cuda.mem_get_info()
-        if arch == "moonshot-v1-16b-a3b":  # bf16 weights drawn directly: no float32 master beside them
-            cfg0 = dataclasses.replace(cfg0, param_dtype="bfloat16")
-        torch.cuda.reset_peak_memory_stats()
-        log(f"path lm_families: {arch}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held before it, "
-            f"{free_b / 1e9:.1f} of {total_b / 1e9:.1f} GB free")
-        master = build_model(cfg0).init_params(gen.manual_seed(0), device=dev)
         extra = cfg0.encoder_seq if cfg0.frontend == "vision" else 0
         max_len = extra + prompt_len + H_STEPS + H_SLACK
         gen.manual_seed(5)
@@ -386,24 +439,52 @@ def lm_families(dev, card: str, configs) -> list:
             batch["patches"] = torch.randn((LM_BATCH, cfg0.encoder_seq, cfg0.d_model), generator=gen, device=dev)
         if cfg0.is_encdec:
             batch["frames"] = torch.randn((LM_BATCH, cfg0.encoder_seq, cfg0.d_model), generator=gen, device=dev)
-        for dtype in dtypes:
-            cfg = dataclasses.replace(cfg0, dtype=dtype)
+        master, master_key = None, None
+        float32_run = float32_toks = None  # the float32 run's (logits, plain logits) and tokens
+        for run, (dtype, depth, held) in enumerate(runs):
+            cfg = dataclasses.replace(cfg0, dtype=dtype, n_layers=depth or cfg0.n_layers)
+            if arch == "moonshot-v1-16b-a3b" and dtype == "bfloat16":
+                # bf16 weights drawn directly: no float32 master beside them
+                cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+            if (cfg.n_layers, cfg.param_dtype) != master_key:
+                master = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                free_b, total_b = torch.cuda.mem_get_info()
+                log(f"path lm_families: {arch} {dtype}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held before it, "
+                    f"{free_b / 1e9:.1f} of {total_b / 1e9:.1f} GB free")
+                master = build_model(cfg).init_params(gen.manual_seed(0), device=dev)
+                master_key = (cfg.n_layers, cfg.param_dtype)
+            torch.cuda.reset_peak_memory_stats()
             model = build_model(cfg)
             params = model.serving_params(master) if cfg.param_dtype != dtype else master
-            step_extra = {}
+            step_extra, tally, routes = {}, Counter(), (Routes() if cfg.moe else None)
             serve(model, params, batch, max_len - H_STEPS + 2, 2, step_extra=step_extra)  # warm-up
-            outs, toks, secs, launched = serve(model, params, batch, max_len, H_STEPS, step_extra=step_extra)
+            forced = float32_toks if dtype == "float64" else None
+            outs, toks, secs, launched = serve(model, params, batch, max_len, H_STEPS, forced=forced,
+                                               step_extra=step_extra, tally=tally, routes=routes)
+            if dtype == "float32":
+                float32_toks = toks
             want = expected(cfg, dtype)
             if launched != want:
                 raise AssertionError(f"{arch} {dtype}: launches {launched}, expected exactly {want}")
+            if sum(tally.values()) != sum(n.get(flash_key.get(dtype), 0) for n in launched.values()):
+                raise AssertionError(f"{arch} {dtype}: flash calls by shape {dict(tally)}, launches {launched}")
+            spread = None
             if cfg.family == "ssm":
-                # no kernel on this path: held against the teacher-forced
+                # no kernel on this path: against the teacher-forced
                 # full-sequence forward, itself a plain version
                 seq = torch.cat([batch["tokens"]] + toks, dim=1)
                 full, _ = model.forward(params, {"tokens": seq})
                 ref_outs = [full[:, prompt_len - 1 + i] for i in range(H_STEPS + 1)]
-                plain_what, spread, shadow = "the teacher-forced forward over the whole sequence", None, {}
+                plain_what, shadow = "the teacher-forced forward over the whole sequence", {}
                 del full
+                if dtype == "float64":  # the float32 run's rounding, on its own tokens
+                    f32_outs, f32_ref = float32_run
+                    plain_what += (f" (the float32 run's decode and forward lie {max_abs(f32_outs, ref_outs, cfg.vocab):.3e}"
+                                   f" and {max_abs(f32_ref, ref_outs, cfg.vocab):.3e} from this forward)")
+                elif dtype == "float32":
+                    float32_run = (outs, ref_outs)
             else:
                 scans = []
 
@@ -417,18 +498,25 @@ def lm_families(dev, card: str, configs) -> list:
                     return y
 
                 plain = build_model(dataclasses.replace(cfg, attention_impl="chunked"), plain_scan)
+                plain_routes = Routes(routes.ids) if cfg.moe else None
                 ref_outs, _, plain_secs, plain_launched = serve(plain, params, batch, max_len, H_STEPS, forced=toks,
-                                                                step_extra={})
+                                                                step_extra={}, routes=plain_routes)
                 if {k: n for k, n in plain_launched["prefill"].items() if k != rglru_ops.KERNEL.key} or any(
                         plain_launched["decode"].values()) or len(scans) != plain_launched["prefill"].get(
                             rglru_ops.KERNEL.key, 0):
                     raise AssertionError(f"{arch} {dtype}: the plain rerun launched {plain_launched}")
                 plain_what = (f"a teacher-forced rerun through chunked attention{', rglru_scan_ref' if cfg.rglru else ''}"
                               f" (prefill {plain_secs['prefill'] * 1e3:.1f} ms)")
-                spread = None
+                if cfg.moe:
+                    if len(plain_routes.ids) != len(routes.ids):
+                        raise AssertionError(f"{arch} {dtype}: {len(routes.ids)} MoE calls on the path, "
+                                             f"{len(plain_routes.ids)} in the plain rerun")
+                    plain_what += (f", the path's expert choices replayed (its own top-k would have routed "
+                                   f"{plain_routes.flips} of {plain_routes.tokens} token-layers otherwise)")
                 if dtype == "bfloat16":
-                    # the spread of two plain attentions in this dtype: the naive prefill against the
-                    # chunked one (the scan through the kernel, which gives the plain loop's bits)
+                    # printed beside the result: the spread of two plain attentions in
+                    # this dtype, the naive prefill against the chunked one (the scan
+                    # through the kernel, which gives the plain loop's bits)
                     naive = build_model(dataclasses.replace(cfg, attention_impl="naive"))
                     spread = rel_diff(serve(naive, params, batch, extra + prompt_len + H_SLACK, 0,
                                             step_extra={})[0][0], ref_outs[0], cfg.vocab)
@@ -438,13 +526,8 @@ def lm_families(dev, card: str, configs) -> list:
                 if {k: c for k, (c, _e) in shadow.items()} != dict(sum(map(Counter, launched.values()), Counter())):
                     raise AssertionError(f"{arch} {dtype}: the shadowed rerun compared {shadow}, the path launched "
                                          f"{launched}")
-            # bf16 logits are held to LM_BF16_REL only where two plain attentions
-            # agree within half of it: elsewhere the bf16 rounding of a random
-            # model moves the logits more than any kernel could be held to, and
-            # the kernels are held call by call on the model's activations
-            held = dtype == "float32" or (spread is not None and spread <= LM_BF16_REL / 2)
-            worst = compare(arch, dtype, outs, ref_outs, cfg.vocab, held)
-            if dtype == dtypes[0]:
+            worst, share = compare(arch, dtype, outs, ref_outs, cfg.vocab, held)
+            if run == 0:
                 walls_ms = {"encode": secs.get("encode", 0) * 1e3, "prefill": secs["prefill"] * 1e3,
                             "decode": secs["decode"] / H_STEPS * 1e3}
                 for ph, b in breakdown(model, params, batch, max_len).items():
@@ -456,52 +539,48 @@ def lm_families(dev, card: str, configs) -> list:
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             wgb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
             enc = f"encode {secs['encode'] * 1e3:.1f} ms, " if "encode" in secs else ""
-            log(f"path lm_families: {arch} ({cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}) {dtype}, "
-                f"attention_impl=flash, batch {LM_BATCH}, prompt {prompt_len}{f' + {extra} patches' if extra else ''}, "
-                f"{H_STEPS} greedy decode steps; launches {launched}")
-            if dtype == "float32":
-                limit = "rtol 2e-2, atol 2e-3"
-            elif held:
-                limit = f"limit {LM_BF16_REL:g}; the naive and chunked prefills {spread:.3e} apart"
-            elif spread is None:
-                limit = "not held: both runs are plain"
-            else:
-                limit = f"not held: the naive and chunked prefills are {spread:.3e} apart, over half of {LM_BF16_REL:g}"
-            log(f"lm_families {arch} {dtype}: {enc}prefill {secs['prefill'] * 1e3:.1f} ms; decode "
-                f"{secs['decode'] / H_STEPS * 1e3:.2f} ms per step, {LM_BATCH * H_STEPS / secs['decode']:.1f} tokens/s; "
-                f"weights {wgb:.2f} GB {cfg.param_dtype if params is master else dtype}; peak device memory "
-                f"{peak_gb:.2f} GB; against {plain_what}: max {'|diff| / max |logit|' if dtype == 'bfloat16' else 'abs diff'}"
-                f" {worst:.3e} ({limit}); every kernel call against its plain version on the same activations "
-                f"(calls, max abs err): {shadow} (host clock, synchronized) -- {card}")
-            path_launches[(arch, dtype)] = launched
+            log(f"path lm_families: {arch} ({cfg.family}, {cfg.n_layers} of {cfg0.n_layers} layers, d_model "
+                f"{cfg.d_model}) {dtype}, attention_impl=flash, batch {LM_BATCH}, prompt {prompt_len}"
+                f"{f' + {extra} patches' if extra else ''}, {H_STEPS} greedy decode steps; launches {launched}; "
+                f"flash calls by (q, k, causal, window) {dict(tally)}")
+            gate = f"{LM_BF16_REL:g} of the largest logit" if dtype == "bfloat16" else "rtol 2e-2, atol 2e-3"
+            limit = f"{'held at' if held else 'not held; the gate'} {gate}, {share:.3f} of it at most"
+            if spread is not None:
+                limit += f"; the naive and chunked prefills {spread:.3e} apart"
+            log(f"lm_families {arch} {dtype}{f' ({cfg.n_layers} layers)' if depth else ''}: {enc}prefill "
+                f"{secs['prefill'] * 1e3:.1f} ms; decode {secs['decode'] / H_STEPS * 1e3:.2f} ms per step, "
+                f"{LM_BATCH * H_STEPS / secs['decode']:.1f} tokens/s; weights {wgb:.2f} GB "
+                f"{cfg.param_dtype if params is master else dtype}; peak device memory {peak_gb:.2f} GB; against "
+                f"{plain_what}: max {'|diff| / max |logit|' if dtype == 'bfloat16' else 'abs diff'} {worst:.3e} "
+                f"({limit}); every kernel call against its plain version on the same activations (calls, max abs "
+                f"err): {shadow} (host clock, synchronized) -- {card}")
             del outs, ref_outs, params, model
-        del master
-        # the attention and scan shapes this model ran, for the times below
-        if cfg0.family == "ssm":
-            continue
-        hd, h, kh = cfg0.resolved_head_dim, cfg0.n_heads, cfg0.n_kv_heads
-        s_in = extra + prompt_len
-        for dtype in dtypes:
-            n = path_launches[(arch, dtype)]
-            fk = flash_key[dtype]
-            if cfg0.is_encdec:
-                se = cfg0.encoder_seq
-                shapes[(arch, "encoder", dtype)] = ((LM_BATCH, se, h, hd), (LM_BATCH, se, kh, hd),
-                                                    {"causal": False}, n["encode"][fk])
-                shapes[(arch, "decoder", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd),
-                                                    {"causal": True}, cfg0.n_layers)
-                shapes[(arch, "cross", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, se, kh, hd),
-                                                  {"causal": False}, cfg0.n_layers)
-                shapes[(arch, "cross_decode", dtype)] = ((LM_BATCH, 1, h, hd), (LM_BATCH, se, kh, hd),
-                                                         {"causal": False}, n["decode"][fk])
+            # the attention and scan shapes this run launched, for the times below
+            if cfg.family == "ssm":
+                continue
+            hd, h, kh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+            s_in = extra + prompt_len
+            n = launched
+            calls = {}  # label -> (q shape, kv shape, options)
+            if cfg.is_encdec:
+                se = cfg.encoder_seq
+                calls["encoder"] = ((LM_BATCH, se, h, hd), (LM_BATCH, se, kh, hd), {"causal": False})
+                calls["decoder"] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd), {"causal": True})
+                calls["cross"] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, se, kh, hd), {"causal": False})
+                calls["cross_decode"] = ((LM_BATCH, 1, h, hd), (LM_BATCH, se, kh, hd), {"causal": False})
             else:
-                opts = {"causal": True, **({"window": cfg0.sliding_window} if cfg0.sliding_window else {})}
-                shapes[(arch, "prefill", dtype)] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd), opts,
-                                                    n["prefill"][fk])
-            if cfg0.rglru is not None:  # float32 whatever the model's dtype
-                dr = cfg0.rglru.d_rnn or int(1.5 * cfg0.d_model)
+                opts = {"causal": True, **({"window": cfg.sliding_window} if cfg.sliding_window else {})}
+                calls["prefill"] = ((LM_BATCH, s_in, h, hd), (LM_BATCH, s_in, kh, hd), opts)
+            for label, (q_shape, kv_shape, opts) in calls.items():
+                shapes[(arch, label, dtype)] = (q_shape, kv_shape, opts,
+                                                tally[(q_shape, kv_shape, opts["causal"], opts.get("window"))])
+            if sum(v[3] for k, v in shapes.items() if k[0] == arch and k[2] == dtype) != sum(tally.values()):
+                raise AssertionError(f"{arch} {dtype}: flash calls by shape {dict(tally)}, rows {calls}")
+            if cfg.rglru is not None:  # float32 whatever the model's dtype
+                dr = cfg.rglru.d_rnn or int(1.5 * cfg.d_model)
                 shapes[(arch, f"rglru.{dtype}", dtype)] = ((LM_BATCH, s_in, dr), None, {},
                                                            n["prefill"][rglru_ops.KERNEL.key])
+        del master
 
     # ---- times: every new kernel shape of the path, beside its plain version, SDPA and its bound
     gc.collect()
@@ -1929,7 +2008,7 @@ def main() -> int:
     report, walls, card = paths_a_to_g()
     # path H runs after every earlier path's tensors are freed: Moonlight's
     # bf16 weights alone take 57.8 GB
-    report += lm_families(torch.device("cuda"), card, {arch: get_arch(arch).full for arch, _p, _d in H_MODELS})
+    report += lm_families(torch.device("cuda"), card, {arch: get_arch(arch).full for arch, _p, _r in H_MODELS})
     walls.mark("path H and its times")
     log(walls.line())
     log(f"card: {card}")

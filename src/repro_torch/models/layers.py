@@ -115,11 +115,12 @@ def rmsnorm_spec(d: int) -> Dict[str, ParamSpec]:
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
-    dt = x.dtype
-    x32 = x.float()
+    # in float32 (float64 for float64 activations)
+    dt, ct = x.dtype, torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(ct)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dt)
+    return (y * params["scale"].to(ct)).to(dt)
 
 
 def layernorm_spec(d: int) -> Dict[str, ParamSpec]:
@@ -130,12 +131,13 @@ def layernorm_spec(d: int) -> Dict[str, ParamSpec]:
 
 
 def layernorm(params, x, eps: float = 1e-5):
-    dt = x.dtype
-    x32 = x.float()
+    # in float32 (float64 for float64 activations)
+    dt, ct = x.dtype, torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(ct)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+    return (y * params["scale"].to(ct) + params["bias"].to(ct)).to(dt)
 
 
 def make_norm(kind: str):
@@ -215,6 +217,23 @@ def mlp(params, x, activation: str):
     else:
         h = _act("gelu" if activation == "gelu" else "silu", dense(params["wi"], x))
     return dense(params["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the RG-LRU and Mamba-2 blocks)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                tail: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d over (B, S, C) with w: (K, C), after the K - 1
+    rows of ``tail`` (zeros when None).  Returns (y, the new tail)."""
+    k = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([tail, x], dim=1)  # (B, S+K-1, C)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    return y + b[None, None, :], xp[:, xp.shape[1] - (k - 1):, :]
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,13 @@ def _dispatch_combine(params, x: torch.Tensor, expert_idx: torch.Tensor, gate_va
     return unsorted.reshape(b, s, k, d).sum(dim=2)
 
 
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's k most probable experts: (their probabilities, their ids).
+    ``moe_layer`` looks it up at each call, so that a check can replay one
+    run's discrete choices in another."""
+    return torch.topk(probs, k, dim=-1)
+
+
 def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, activation: str, *,
               capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) → (out (B, S, D), aux-loss dict)."""
@@ -89,7 +96,7 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, activation: str, *,
     # ---- routing (float32 for numerics; the router is a float32 leaf)
     logits = x.float() @ params["router"]["kernel"]  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)  # (B, S, k)
+    gate_vals, expert_idx = _top_k(probs, k)  # (B, S, k)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
 
     # ---- aux losses (Switch/ST-MoE)

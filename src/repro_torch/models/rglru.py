@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
 
-from .layers import ParamSpec
+from .layers import ParamSpec, causal_conv
 
 _C = 8.0  # Griffin's fixed exponent scale
 
@@ -70,16 +70,6 @@ def rglru_step(params, x: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, 
     return h_new, h_new
 
 
-def _causal_conv(x, w, b, tail):
-    """Depthwise causal conv1d. x: (B, S, C); w: (K, C). Returns (y, new_tail)."""
-    k = w.shape[0]
-    if tail is None:
-        tail = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    xp = torch.cat([tail, x], dim=1)
-    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
-    return y + b[None, None, :], xp[:, xp.shape[1] - (k - 1):, :]
-
-
 def rglru_block(params, x: torch.Tensor, cfg: RGLRUConfig, *, cache: Optional[Dict[str, torch.Tensor]] = None,
                 scan: Scan = rglru_ops.rglru_scan) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full recurrent block: in-proj ∥ gate, conv1d, RG-LRU, gated out-proj.
@@ -92,7 +82,7 @@ def rglru_block(params, x: torch.Tensor, cfg: RGLRUConfig, *, cache: Optional[Di
     gate = F.gelu(x @ params["w_gate"]["kernel"].to(x.dtype), approximate="tanh")
     xr = x @ params["w_x"]["kernel"].to(x.dtype)
     tail = cache["conv"] if cache is not None else None
-    xr, new_tail = _causal_conv(xr, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), tail)
+    xr, new_tail = causal_conv(xr, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), tail)
     h0 = cache["h"] if cache is not None else None
     if h0 is not None and xr.shape[1] == 1:
         y, h_last = rglru_step(params, xr[:, 0], h0)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 
-from .layers import ParamSpec
+from .layers import ParamSpec, causal_conv
 
 
 def ssd_spec(d_model: int, cfg: SSMConfig) -> Dict[str, Any]:
@@ -37,17 +37,6 @@ def ssd_spec(d_model: int, cfg: SSMConfig) -> Dict[str, Any]:
         "norm_scale": ParamSpec((di,), ("mlp",), init="ones"),
         "w_out": {"kernel": ParamSpec((di, d_model), ("mlp", "embed"))},
     }
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 tail: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv1d then SiLU. x: (B, S, C); w: (K, C). Returns (y, new_tail)."""
-    k = w.shape[0]
-    if tail is None:
-        tail = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    xp = torch.cat([tail, x], dim=1)  # (B, S+K-1, C)
-    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
-    return F.silu(y + b[None, None, :]), xp[:, xp.shape[1] - (k - 1):, :]
 
 
 def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] = None):
@@ -78,17 +67,23 @@ def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] =
     cum = torch.cumsum(da, dim=2)              # within-chunk cumulative
     seg_total = cum[:, :, -1, :]                # (B, nc, H)
 
-    # ---- intra-chunk (quadratic within Q): L[i,j] = exp(cum_i - cum_j) · (i >= j)
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,Q,Q,H)
+    # The decays between two steps of a chunk are sums of the da between them,
+    # never differences of ``cum``: the reference's exp(cum_i - cum_j) loses
+    # about ulp(|cum|) (8e-6 in float32 at |cum| = 100) where the decay matters
+    # most, a loss the decode step's exp(dt·A) does not have.
+    # ---- intra-chunk (quadratic within Q): L[i,j] = exp(da_{j+1} + ... + da_i) · (i >= j)
     ii = torch.arange(q, device=x.device)
-    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(diff), 0.0)
+    after = (ii[:, None] > ii[None, :])[None, None, :, :, None]
+    seg = torch.cumsum(torch.where(after, da[:, :, :, None, :], 0.0), dim=2)  # (B,nc,Q,Q,H)
+    L = torch.where((ii[:, None] >= ii[None, :])[None, None, :, :, None], torch.exp(seg), 0.0)
     scores = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh)          # (B,nc,Q,Q,H)
     w = scores * L * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", w, xc)
 
-    # ---- chunk states: S_c = Σ_j exp(seg_total - cum_j) dt_j B_j ⊗ x_j
-    decay_to_end = torch.exp(seg_total[:, :, None, :] - cum)    # (B,nc,Q,H)
+    # ---- chunk states: S_c = Σ_j exp(da_{j+1} + ... + da_{Q-1}) dt_j B_j ⊗ x_j
+    to_end = torch.flip(torch.cumsum(torch.flip(da[:, :, 1:], dims=(2,)), dim=2), dims=(2,))
+    to_end = torch.cat([to_end, torch.zeros_like(da[:, :, :1])], dim=2)
+    decay_to_end = torch.exp(to_end)                            # (B,nc,Q,H)
     wB = Bh * (decay_to_end * dtc)[..., None]                   # (B,nc,Q,H,N)
     chunk_states = torch.einsum("bcqhn,bcqhp->bchnp", wB, xc)   # (B,nc,H,N,P)
 
@@ -122,23 +117,27 @@ def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
     z, xbc, dt_raw = torch.split(proj, [di, d_xbc, nh], dim=-1)
 
     conv_tail = cache["conv"] if cache is not None else None
-    xbc, new_tail = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), conv_tail)
+    xbc, new_tail = causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), conv_tail)
+    xbc = F.silu(xbc)
     xs, B, C = torch.split(xbc, [di, gn, gn], dim=-1)
     xs = xs.reshape(b, s, nh, cfg.head_dim)
     B = B.reshape(b, s, cfg.n_groups, cfg.d_state)
     C = C.reshape(b, s, cfg.n_groups, cfg.d_state)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"].float())  # (H,) negative
+    # the SSD and its gated norm in float32, as the reference casts, or in
+    # float64 for float64 activations
+    ct = torch.promote_types(x.dtype, torch.float32)
+    dt = F.softplus(dt_raw.to(ct) + params["dt_bias"][None, None, :])
+    A = -torch.exp(params["A_log"].to(ct))  # (H,) negative
 
-    state0 = cache["state"].float() if cache is not None else None
-    y, final_state = _ssd_chunked(xs.float(), dt, A, B.float(), C.float(), params["D"].float(), cfg.chunk,
+    state0 = cache["state"].to(ct) if cache is not None else None
+    y, final_state = _ssd_chunked(xs.to(ct), dt, A, B.to(ct), C.to(ct), params["D"].to(ct), cfg.chunk,
                                   state0=state0)
     y = y.reshape(b, s, di).to(x.dtype)
 
     # gated RMSNorm (Mamba-2)
-    y32 = y.float() * F.silu(z.float())
+    y32 = y.to(ct) * F.silu(z.to(ct))
     var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
-    y32 = y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
+    y32 = y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"].to(ct)
     out = y32.to(x.dtype) @ params["w_out"]["kernel"].to(x.dtype)
     if cache is None:
         return out, None

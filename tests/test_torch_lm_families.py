@@ -305,6 +305,32 @@ def test_ssd_chunked_matches_reference(s, chunk):
     _near(t_ssm._ssd_chunked(*map(torch.from_numpy, args), chunk)[0], r_y0)
 
 
+def test_ssd_chunked_decays_hold_float64_recurrence():
+    """At Mamba-2's chunk of 256, where the within-chunk log-decay sums reach
+    ~|300|: the port's float32 chunked scan against the float64 step-by-step
+    recurrence (the decode step's own form) within 1e-6 of the largest value,
+    which the reference's exp(cum_i - cum_j) does not reach."""
+    b, s, h, p, n, chunk = 1, 512, 4, 8, 16, 256
+    x, B, C = _rand((b, s, h, p), 1), _rand((b, s, 1, n), 2), _rand((b, s, 1, n), 3)
+    dt = np.log1p(np.exp(_rand((b, s, h), 4) + 1.0)).astype(np.float32)
+    A, D = -np.exp(_rand((h,), 5, 0.3)), np.ones(h, np.float32)
+    state, ys = np.zeros((b, h, n, p)), []
+    for t in range(s):
+        state = (state * np.exp(dt[:, t].astype(np.float64) * A)[..., None, None]
+                 + np.einsum("bh,bn,bhp->bhnp", dt[:, t], B[:, t, 0], x[:, t]))
+        ys.append(np.einsum("bn,bhnp->bhp", C[:, t, 0], state) + x[:, t] * D[None, :, None])
+    # one thread: a process's first multi-threaded float32 ``torch.exp`` has
+    # been seen to miss by 1e-4 relative on some x86 CPUs, far past this limit
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        y, final = t_ssm._ssd_chunked(*map(torch.from_numpy, (x, dt, A, B, C, D)), chunk)
+    finally:
+        torch.set_num_threads(threads)
+    _near(y, np.stack(ys, 1), 1e-6)
+    _near(final, state, 1e-6)
+
+
 def test_ssd_block_continues_its_cache_over_decode():
     cfg = r_get_arch("mamba2-370m").reduced.ssm
     d, b, prompt = 64, 2, 11
@@ -317,6 +343,41 @@ def test_ssd_block_continues_its_cache_over_decode():
         t_y, t_cache = t_ssm.ssd_block(t_p, torch.from_numpy(x[:, lo:hi]), cfg, cache=t_cache)
         _near(t_y, r_y)
         _near_tree(t_cache, _ref_tree(r_cache))
+
+
+def test_ssd_block_float64_decode_is_its_forward():
+    """Float64 activations run the SSD in float64 (float32 ones in float32, as
+    the reference casts): the prompt and 3 decode steps through the cache
+    give the full sequence's outputs to float64 rounding."""
+    cfg = r_get_arch("mamba2-370m").reduced.ssm
+    d, b, prompt = 64, 2, 11
+    _, t_p = _module_params(r_ssm.ssd_spec, d, cfg, scale=0.2)
+    x = torch.from_numpy(_rand((b, prompt + 3, d), 10)).double()
+    full, _ = t_ssm.ssd_block(t_p, x, cfg)
+    cache = t_ssm.make_ssd_cache(b, d, cfg, torch.float64, device="cpu")
+    parts = []
+    for lo, hi in [(0, prompt)] + [(t, t + 1) for t in range(prompt, prompt + 3)]:
+        y, cache = t_ssm.ssd_block(t_p, x[:, lo:hi], cfg, cache=cache)
+        parts.append(y)
+    assert full.dtype == torch.float64
+    _near(torch.cat(parts, dim=1), full.numpy(), 1e-12)
+
+
+def test_mamba2_float64_serve_is_its_forward():
+    """The reduced Mamba-2 in float64 (its norms too): prefill and 4 decode
+    steps give the teacher-forced forward's logits to float64 rounding."""
+    cfg = dataclasses.replace(get_arch("mamba2-370m").reduced, dtype="float64")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(_batch(cfg, 2, 16, seed=3)["tokens"]).long()
+    cache = model.make_cache(2, 20, device="cpu")
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :12]}, cache)
+    got = [logits]
+    for t in range(12, 16):
+        logits, cache = model.decode_step(params, {"tokens": tokens[:, t:t + 1]}, cache)
+        got.append(logits)
+    full, _ = model.forward(params, {"tokens": tokens})
+    _near(torch.stack(got, 1).double(), full[:, 11:].double().numpy(), 1e-12)
 
 
 @pytest.mark.parametrize("impl", [("naive", "naive"), ("chunked", "chunked"), ("pallas", "flash")])
