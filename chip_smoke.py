@@ -92,7 +92,21 @@ Phases, in order; any failure exits non-zero before the result line:
    chunked prefills, and a rerun holding every kernel call against its
    plain version on the model's own activations; prefill and decode walls,
    tokens/s, peak memory, and a ``torch.profiler`` breakdown of each
-   model's first run (card time, launches, idle share);
+   model's first run (card time, launches, idle share); (I), run after
+   paths A-G return and before path H: the distributed stencil path, four
+   ranks spawned on the one card over gloo (``launch.ranks.run_ranks``), a
+   (2, 2) ("data", "model") mesh over 512 x 512 x 80 float64, each rank the
+   256 x 256 x 80 tile: the climate program distributed (10 calls, then
+   ``iterate(10)``; two group launches a step, the plan's two exchanges a
+   step), the eager chain of ``DistributedStencil``s (bit for bit the same),
+   ``DistributedStencil(hdiff)``, and a 4-member ``DistributedEnsemble`` on
+   a (2, 1, 2) ("ens", "data", "model") mesh over 256 x 512 x 80 (one launch
+   a group and step, one exchange a buffer and step, for both members); each
+   rank held within 1e-12 of single-domain runs on the card (the program
+   over the zero-padded 518 x 518 x 80 domain, ``ops.hdiff``, each member
+   alone); the step, its exchanges and its group kernels by CUDA events (max
+   over ranks) beside the single-domain step; a failed or hung rank fails
+   the script. The distributed groups build in phase 2;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -108,7 +122,8 @@ Phases, in order; any failure exits non-zero before the result line:
    member, the ensemble per step and per member-step, and the statistics
    kernel; after path H, each flash and RG-LRU shape it ran, beside its plain
    version, ``scaled_dot_product_attention`` (KV heads expanded, the window
-   as an explicit boolean mask) and its bound.
+   as an explicit boolean mask) and its bound; after path I, its group
+   kernels (one-member and member-batched) and hdiff at a rank's tile.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -150,6 +165,14 @@ SERVE_STEPS, SERVE_EVERY = 10, 5  # steps a request, streamed (and warmed) every
 SERVE_CLIMATE, SERVE_FORECAST = 16, 5  # requests: one full 16-member window, and 5 padded to 8
 SERVE_ALONE = (0, 7, 15)  # climate requests rerun alone
 SWEEP_MEMBERS = 16
+# path I: four ranks on the one card over gloo, a (2, 2) ("data", "model")
+# mesh over a 512 x 512 x 80 domain, each rank the 256 x 256 x 80 tile; the
+# ensemble: 4 members on a (2, 1, 2) ("ens", "data", "model") mesh over
+# 256 x 512 x 80, 2 members a rank
+DIST_MESH, DIST_GLOBAL, DIST_LOCAL = (2, 2), (512, 512, 80), (256, 256, 80)
+DIST_ENS_MESH, DIST_ENS_GLOBAL, DIST_MEMBERS = (2, 1, 2), (256, 512, 80), 4
+DIST_TIMEOUT = 120  # seconds for the ranks' whole run, and the process group's timeout
+HDIFF_ALPHA = 0.05
 # path H: (arch, prompt, runs), each at full width, batch LM_BATCH; a run is
 # (dtype, depth or None for the full one, whether its logits are held against
 # the plain rerun).  bf16 runs are held where the bf16 rounding of the random
@@ -206,6 +229,50 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def stencil_bound(st, domain, members=1, shared=()):
+    """(bytes, flops) this call needs: each input region read once, each
+    output written once; arithmetic nodes over each stage's region; a
+    member-batched call reads and writes each member's fields, the
+    ``shared`` ones once."""
+    import numpy as np
+
+    from repro_torch.core import ir
+
+    impl = st.implementation_ir
+    ni, nj, nk = domain
+    isz = {f.name: np.dtype(f.dtype).itemsize for f in impl.api_fields}
+    read_lv, write_lv = {}, {}
+    flops = 0
+    for ms in impl.multi_stages:
+        for itv in ms.intervals:
+            k0, k1 = itv.interval.resolve(nk)
+            for stage in itv.stages:
+                e = stage.compute_extent
+                pts = (ni + e.i[1] - e.i[0]) * (nj + e.j[1] - e.j[0]) * max(0, k1 - k0)
+                for stmt in stage.stmts:
+                    flops += pts * sum(isinstance(x, (ir.BinOp, ir.NativeCall, ir.TernaryOp))
+                                       or (isinstance(x, ir.UnaryOp) and x.op == "-")
+                                       for x in ir.walk_exprs(stmt))
+                    for n, off in ir.stmt_reads(stmt):
+                        # an input: read where this call has not written it yet
+                        if n in isz and n not in write_lv:
+                            read_lv.setdefault(n, set()).update(range(k0 + off[2], k1 + off[2]))
+                    for n in ir.stmt_writes(stmt):
+                        if n in isz:
+                            write_lv.setdefault(n, set()).update(range(k0, k1))
+    nbytes = 0
+    for n, lv in read_lv.items():
+        info = st.field_info[n]
+        (ilo, jlo, _), (ihi, jhi, _) = info.halo_lo, info.halo_hi
+        nbytes += (ni + ilo + ihi) * (nj + jlo + jhi) * len(lv) * isz[n] * (1 if n in shared else members)
+    for n, lv in write_lv.items():
+        nbytes += ni * nj * len(lv) * isz[n] * members
+    flops *= members
+    dtype = impl.api_fields[0].dtype
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
 def lm_families(dev, card: str, configs) -> list:
@@ -690,6 +757,7 @@ def paths_a_to_g():
     from repro_torch.models import build_model
     from repro_torch.obs import trace as otrace
     from repro_torch.serving import RequestSpec, ServingEngine, drive_engine
+    from repro_torch.program.compile import DistributedStepPlan
     from repro_torch.stencils import climate, forecast, hdiff, vadv, vintg
 
     walls = Walls()
@@ -785,6 +853,13 @@ def paths_a_to_g():
     ens_ce = ens.compiled(meta_fields(MEMBERS), scalars)
     ens_runs = ens_ce.batched_runs({})
     ens_stats = ens.statistics()
+    # path I's distributed program (its groups are climate_step_dist_g*) at
+    # the rank's 256 x 256 x 80 tile, one-member and member-batched: built
+    # here with the rest, so that no rank runs nvcc
+    dist_plan = DistributedStepPlan(prog, {n: torch.empty(DIST_LOCAL, dtype=torch.float64, device="meta")
+                                           for n in names}, scalars, DIST_LOCAL, {})
+    dist_kernels = [o.kernel for o in dist_plan.group_objects]
+    dist_kernels += [o.block_kernel(None, ()) for o in dist_plan.group_objects]
     # path G's programs, built with autotune=True (the tuner picks each group's
     # block on the card): the climate step and the reference's serving demo,
     # compiled on meta storages; every candidate block of every group, one
@@ -816,7 +891,7 @@ def paths_a_to_g():
     kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     kernels += [s.kernel for s in S_sync.values()]
     kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
-    kernels += variants
+    kernels += variants + dist_kernels
     for k in kernels:
         k.start_build()
     for k in kernels:
@@ -1674,44 +1749,7 @@ def paths_a_to_g():
     del load, by_id, engine, entries, serve_fields
     walls.mark("path G")
     # ---------------------------------------------------------------- 5. times
-    def bound(st, domain, members=1, shared=()):
-        """(bytes, flops) this call needs: each input region read once, each
-        output written once; arithmetic nodes over each stage's region; a
-        member-batched call reads and writes each member's fields, the
-        ``shared`` ones once."""
-        impl = st.implementation_ir
-        ni, nj, nk = domain
-        isz = {f.name: np.dtype(f.dtype).itemsize for f in impl.api_fields}
-        read_lv, write_lv = {}, {}
-        flops = 0
-        for ms in impl.multi_stages:
-            for itv in ms.intervals:
-                k0, k1 = itv.interval.resolve(nk)
-                for stage in itv.stages:
-                    e = stage.compute_extent
-                    pts = (ni + e.i[1] - e.i[0]) * (nj + e.j[1] - e.j[0]) * max(0, k1 - k0)
-                    for stmt in stage.stmts:
-                        flops += pts * sum(isinstance(x, (ir.BinOp, ir.NativeCall, ir.TernaryOp))
-                                           or (isinstance(x, ir.UnaryOp) and x.op == "-")
-                                           for x in ir.walk_exprs(stmt))
-                        for n, off in ir.stmt_reads(stmt):
-                            # an input: read where this call has not written it yet
-                            if n in isz and n not in write_lv:
-                                read_lv.setdefault(n, set()).update(range(k0 + off[2], k1 + off[2]))
-                        for n in ir.stmt_writes(stmt):
-                            if n in isz:
-                                write_lv.setdefault(n, set()).update(range(k0, k1))
-        nbytes = 0
-        for n, lv in read_lv.items():
-            info = st.field_info[n]
-            (ilo, jlo, _), (ihi, jhi, _) = info.halo_lo, info.halo_hi
-            nbytes += (ni + ilo + ihi) * (nj + jlo + jhi) * len(lv) * isz[n] * (1 if n in shared else members)
-        for n, lv in write_lv.items():
-            nbytes += ni * nj * len(lv) * isz[n] * members
-        flops *= members
-        dtype = impl.api_fields[0].dtype
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-        return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+    bound = stencil_bound
 
     def timed(st, fields, scalars_, domain):
         """The kernel's ms a launch, arguments prepared once; its result is
@@ -1993,7 +2031,396 @@ def paths_a_to_g():
         "ms_bfloat16": rglru_bf16_ms, "bound_ms_bfloat16": rglru_bf16_bound,
     })
     walls.mark("times")
-    return report, walls, card
+    return report, walls, card, iter_ms
+
+
+def path_i_arrays(domain):
+    """Path I's global interior fields, seeded with numpy: a gaussian tracer
+    with noise, steady winds, a random w, zeros elsewhere."""
+    import numpy as np
+
+    from repro_torch.stencils import climate
+
+    ni, nj, nk = domain
+    g = np.random.default_rng(5)
+    xx, yy = np.meshgrid(np.linspace(-2, 2, ni), np.linspace(-2, 2, nj), indexing="ij")
+    out = {n: np.zeros(domain) for n in climate.FIELD_NAMES}
+    out["phi"] = np.exp(-(xx**2 + yy**2))[:, :, None] * np.ones((1, 1, nk)) + 1e-2 * g.normal(size=domain)
+    out["u"] = np.full(domain, 0.8)
+    out["v"] = np.full(domain, -0.4)
+    out["w"] = 0.2 * g.random(domain)
+    return out
+
+
+def path_i_members(domain):
+    """The ensemble's fields (``path_i_arrays``) and its members' initial
+    tracers: the base tracer plus 1e-3 of seeded noise each."""
+    import numpy as np
+
+    base = path_i_arrays(domain)
+    noise = np.random.default_rng(11).normal(size=(DIST_MEMBERS,) + tuple(domain))
+    return base, base["phi"][None] + 1e-3 * noise
+
+
+def path_i_rank(rank: int, world: int, store: str) -> dict:
+    """Path I on one of the four ranks that share the card (``launch.ranks``
+    runs it in each): the distributed climate program (10 calls, then
+    ``iterate(10)``), the eager chain of DistributedStencils, hdiff, and the
+    ensemble over members x domain; each held, on this rank's block, against
+    the single-domain runs ``path_i`` saved in ``store``.  Returns what the
+    parent checks and prints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import codegen_cuda, storage
+    from repro_torch.kernels.hdiff import ops as hdiff_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import halo
+    from repro_torch.stencils import climate
+    from repro_torch.stencils.distributed import DistributedStencil
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    store = Path(store)
+    scalars = dict(climate.DEFAULT_SCALARS)
+    out = {"rank": rank}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def on_card(block):
+        t = storage.card_tensor(block.shape, torch.float64, dev)
+        t.copy_(block)
+        return t
+
+    def saved(name, mesh, member_axis=None):
+        """This rank's block of a single-domain result ``path_i`` saved."""
+        whole = torch.from_numpy(np.load(store / f"{name}.npy", mmap_mode="c"))
+        return halo.shard_blocks(whole, mesh, member_axis=member_axis)
+
+    def deviation(t, ref):
+        return float((t.cpu() - ref).abs().max())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()  # the ranks start together
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, start.elapsed_time(end)
+
+    mesh = make_mesh(DIST_MESH, ("data", "model"))
+    blocks = {n: halo.shard_blocks(torch.from_numpy(a), mesh) for n, a in path_i_arrays(DIST_GLOBAL).items()}
+
+    def fresh():
+        return {n: on_card(b) for n, b in blocks.items()}
+
+    st = climate.build_stencils("cuda")
+    dp = climate.build_program("cuda", DIST_LOCAL, stencils=st, name="climate_step").distribute(mesh)
+    fc, fi = fresh(), fresh()
+    groups = dp.plan(fc, scalars).group_objects
+
+    # the program: 10 calls, then iterate(10) from the same start
+    def calls():
+        for _ in range(NSTEPS):
+            o = dp(fc, scalars)
+            fc["phi"], fc["phi_new"] = o["phi"], o["phi_new"]
+
+    dp(fresh(), scalars)  # a first call binds the padded and pinned buffers and the launchers: not timed
+    codegen_cuda.reset_launch_counts()
+    halo.reset_message_counts()
+    _none, ms = timed(calls)
+    out["call_ms"] = ms / NSTEPS
+    info = {}
+    final, ms = timed(lambda: dp.iterate(NSTEPS, fi, scalars, exec_info=info))
+    out["iterate_ms"] = ms / NSTEPS
+    out["program_launches"] = [g.launches for g in groups]
+    out["program_stencil_launches"] = sum(s.launches for s in st.values())
+    out["program_all_launches"] = sum(codegen_cuda.launch_counts().values())
+    out["program_messages"] = halo.message_counts()
+    out["report"], out["timings"] = info["program_report"], info["rank_timings"]
+    out["iterate_equals_calls"] = bool(torch.equal(final["phi"], fc["phi"]))
+    out["program_err"] = deviation(fc["phi"], saved("program", mesh))
+    # the exchange alone, 20 in a row with no kernel between: the staged transport's own cost
+    padded = halo.padded_like(fc["phi"], 1, card=True)
+    _none, ms = timed(lambda: [dp.exchange.fill(padded, 1) for _ in range(20)])
+    out["exchange_alone_ms"] = ms / 20
+
+    # the eager chain: one DistributedStencil a stencil, each exchanging every field it takes
+    dst = {n: DistributedStencil(s, mesh) for n, s in st.items()}
+    fe = fresh()
+    codegen_cuda.reset_launch_counts()
+    halo.reset_message_counts()
+    _none, ms = timed(lambda: [climate.distributed_eager_step(dst, fe, scalars) for _ in range(NSTEPS)])
+    out["eager_ms"] = ms / NSTEPS
+    out["eager_launches"] = {n: s.launches for n, s in st.items()}
+    out["eager_all_launches"] = sum(codegen_cuda.launch_counts().values())
+    out["eager_messages"] = halo.message_counts()
+    out["calls_equal_eager"] = bool(torch.equal(fc["phi"], fe["phi"]))
+    del fc, fi, fe, final
+
+    # hdiff on the rank's block
+    hd = hdiff_ops.stencil_object("float64")
+    dh = DistributedStencil(hd, mesh)
+    x = on_card(blocks["phi"])
+    codegen_cuda.reset_launch_counts()
+    halo.reset_message_counts()
+    smoothed, _ms = timed(lambda: dh({"in_phi": x, "out_phi": torch.zeros_like(x)}, {"alpha": HDIFF_ALPHA}))
+    out["hdiff_launches"] = hd.launches
+    out["hdiff_all_launches"] = sum(codegen_cuda.launch_counts().values())
+    out["hdiff_messages"] = halo.message_counts()
+    out["hdiff_err"] = deviation(smoothed["out_phi"], saved("hdiff", mesh))
+    del blocks, x, smoothed
+
+    # the ensemble: 4 members over "ens", tiles over (data, model); u, v, w shared
+    emesh = make_mesh(DIST_ENS_MESH, ("ens", "data", "model"))
+    base, members = path_i_members(DIST_ENS_GLOBAL)
+    eprog = climate.build_program("cuda", DIST_LOCAL, stencils=st, name="climate_step")
+    dens = eprog.ensemble(DIST_MEMBERS).distribute(emesh, member_axis="ens")
+    ef = {}
+    for n, a in base.items():
+        if n == "phi":
+            ef[n] = on_card(halo.shard_blocks(torch.from_numpy(members), emesh, member_axis="ens"))
+        elif n in ("u", "v", "w"):
+            ef[n] = on_card(halo.shard_blocks(torch.from_numpy(a), emesh))
+        else:
+            ef[n] = storage.card_tensor((dens.local_members,) + DIST_LOCAL, torch.float64, dev, "zeros")
+    del base, members
+    egroups = dens.dp.plan({n: (t[0] if t.dim() == 4 else t) for n, t in ef.items()}, scalars).group_objects
+    codegen_cuda.reset_launch_counts()
+    halo.reset_message_counts()
+    info = {}
+    efinal, ms = timed(lambda: dens.iterate(NSTEPS, ef, scalars, exec_info=info))
+    out["ens_ms"] = ms / NSTEPS
+    out["ens_launches"] = [g.block_kernel(None, ()).launches for g in egroups]
+    out["ens_one_member_launches"] = sum(g.launches for g in egroups)
+    out["ens_all_launches"] = sum(codegen_cuda.launch_counts().values())
+    out["ens_messages"] = halo.message_counts()
+    out["ens_report"], out["ens_timings"] = info["ensemble_report"], info["rank_timings"]
+    out["members_err"] = deviation(efinal["phi"], saved("members", emesh, "ens"))
+    dist.barrier()
+    return out
+
+
+def path_i(card: str, path_e_ms: float) -> list:
+    """Path I: the distributed stencil path, four ranks on the one card over
+    gloo (``path_i_rank``), held against single-domain runs on the card;
+    returns the kernels' report rows of the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import storage
+    from repro_torch.kernels.hdiff import ops as hdiff_ops
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.program.compile import DistributedStepPlan
+    from repro_torch.stencils import climate
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    store = ROOT / ".gt_cache_torch" / "path_i"
+    store.mkdir(parents=True, exist_ok=True)
+    scalars = dict(climate.DEFAULT_SCALARS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def padded(a):
+        """``a`` in a zero halo of depth H, a storage on the card."""
+        return storage.from_array(np.pad(a, ((H, H), (H, H), (0, 0))), backend="cuda", default_origin=(H, H, 0))
+
+    # the single-domain runs on the card the ranks are held against: the
+    # program over the zero-padded 518 x 518 x 80 domain, hdiff on the same
+    # padded tracer, and each ensemble member alone at 262 x 518 x 80
+    glob = path_i_arrays(DIST_GLOBAL)
+    f = {n: padded(a) for n, a in glob.items()}
+    prog = climate.build_program("cuda", DIST_GLOBAL, name="climate_step")
+    prog.compiled(f, scalars)  # traced and compiled before the timed calls
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(NSTEPS):
+        prog(**f, **scalars)
+    end.record()
+    torch.cuda.synchronize()
+    single_ms = start.elapsed_time(end) / NSTEPS
+    np.save(store / "program.npy", f["phi"].to_numpy()[H:-H, H:-H])
+    smoothed = hdiff_ops.hdiff(torch.from_numpy(np.pad(glob["phi"], ((H, H), (H, H), (0, 0)))).to(dev), HDIFF_ALPHA)
+    np.save(store / "hdiff.npy", smoothed[H:-H, H:-H].cpu().numpy())
+    base, members = path_i_members(DIST_ENS_GLOBAL)
+    eprog = climate.build_program("cuda", DIST_ENS_GLOBAL, name="climate_step")
+    refs = []
+    for m in range(DIST_MEMBERS):
+        fm = {n: padded(members[m] if n == "phi" else a) for n, a in base.items()}
+        eprog.iterate(NSTEPS, **fm, **scalars)
+        refs.append(fm["phi"].to_numpy()[H:-H, H:-H])
+    np.save(store / "members.npy", np.stack(refs))
+    del f, glob, smoothed, base, members, fm, refs
+    torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    world = DIST_MESH[0] * DIST_MESH[1]
+    res = run_ranks(path_i_rank, world, (str(store),), store_dir=store, backend="gloo", timeout=DIST_TIMEOUT)
+    t_ranks = time.perf_counter() - t1
+    for name in ("program", "hdiff", "members"):
+        (store / f"{name}.npy").unlink()
+
+    r0 = res[0]
+    plan = r0["report"]["halo_plan"]
+    inserted = plan["inserted"]
+    log(f"path distributed: {world} ranks on one card over gloo (stripes staged through pinned host memory), "
+        f"mesh {DIST_MESH} ('data', 'model') over {DIST_GLOBAL} float64, {DIST_LOCAL} a rank; groups "
+        f"{r0['report']['group_stencils']}, eliminated temporaries {r0['report']['eliminated_temporaries']}; "
+        f"halo plan {plan}")
+    bad = []
+    for r in res:
+        rk = f"rank {r['rank']}"
+        if r["program_launches"] != [2 * NSTEPS] * len(r["program_launches"]) or r["program_stencil_launches"]:
+            bad.append(f"{rk}: program launches {r['program_launches']}, per-stencil {r['program_stencil_launches']}")
+        if r["program_all_launches"] != sum(r["program_launches"]):
+            bad.append(f"{rk}: {r['program_all_launches']} launches in all during the program")
+        if r["program_messages"]["exchanges"] != inserted * 2 * NSTEPS:
+            bad.append(f"{rk}: {r['program_messages']['exchanges']} exchanges in {2 * NSTEPS} steps, plan {inserted}")
+        if set(r["eager_launches"].values()) != {NSTEPS} or r["eager_all_launches"] != 5 * NSTEPS:
+            bad.append(f"{rk}: eager chain launches {r['eager_launches']} ({r['eager_all_launches']} in all)")
+        if r["eager_messages"]["exchanges"] != plan["baseline_per_step"] * NSTEPS:
+            bad.append(f"{rk}: eager chain {r['eager_messages']['exchanges']} exchanges, baseline "
+                       f"{plan['baseline_per_step']} a step")
+        if r["hdiff_launches"] != 1 or r["hdiff_all_launches"] != 1:
+            bad.append(f"{rk}: hdiff launches {r['hdiff_launches']} ({r['hdiff_all_launches']} in all)")
+        if (r["ens_launches"] != [NSTEPS] * len(r["ens_launches"]) or r["ens_one_member_launches"]
+                or r["ens_all_launches"] != sum(r["ens_launches"])):
+            bad.append(f"{rk}: ensemble launches {r['ens_launches']}, one-member {r['ens_one_member_launches']}")
+        if r["ens_messages"]["exchanges"] != r["ens_report"]["program_report"]["halo_plan"]["inserted"] * NSTEPS:
+            bad.append(f"{rk}: ensemble exchanges {r['ens_messages']}")
+        if not (r["calls_equal_eager"] and r["iterate_equals_calls"]):
+            bad.append(f"{rk}: calls == eager chain {r['calls_equal_eager']}, iterate == calls "
+                       f"{r['iterate_equals_calls']}")
+    errs = {k: max(r[k] for r in res) for k in ("program_err", "hdiff_err", "members_err")}
+    log(f"distributed: launches a rank {r0['program_launches']} in {NSTEPS} calls and iterate({NSTEPS}) (two a "
+        f"step, none of the five per-stencil kernels), exchanges a rank {r0['program_messages']} ({inserted} a "
+        f"step); eager chain {r0['eager_launches']}, exchanges {r0['eager_messages']} "
+        f"({plan['baseline_per_step']} a step); hdiff {r0['hdiff_launches']} launch, {r0['hdiff_messages']}")
+    log(f"distributed: calls == eager chain bit for bit and iterate == calls on every rank: "
+        f"{all(r['calls_equal_eager'] and r['iterate_equals_calls'] for r in res)}; max deviation from the "
+        f"single-domain program over the zero-padded {DIST_GLOBAL[0] + 2 * H} x {DIST_GLOBAL[1] + 2 * H} x "
+        f"{DIST_GLOBAL[2]} domain {errs['program_err']:.3e}, hdiff from ops.hdiff {errs['hdiff_err']:.3e}, "
+        f"ensemble members from their single-domain runs {errs['members_err']:.3e} (atol 1e-12)")
+    er = r0["ens_report"]
+    log(f"distributed ensemble: {er['members']} members on mesh {DIST_ENS_MESH} ('ens', 'data', 'model') over "
+        f"{DIST_ENS_GLOBAL}, {er['members_per_shard']} a rank; launches a rank {r0['ens_launches']} (one a group "
+        f"and step for both members), exchanges {r0['ens_messages']} (one a buffer and step carries both)")
+    if bad or not max(errs.values()) <= 1e-12:
+        raise AssertionError(f"distributed path: {bad}, deviations {errs}")
+
+    def worst(key, field):
+        return max(r[key][field] / r[key]["steps"] * 1e3 for r in res)
+
+    log(f"time distributed step {DIST_GLOBAL} float64 on {world} ranks sharing one card (CUDA events, max over "
+        f"ranks): iterated step {worst('timings', 'seconds'):.4f} ms, its {inserted} exchanges "
+        f"{worst('timings', 'exchange_seconds'):.4f} ms, its group kernels {worst('timings', 'groups_seconds'):.4f} "
+        f"ms; an exchange alone (20 in a row, no kernel between) {max(r['exchange_alone_ms'] for r in res):.4f} ms; "
+        f"a call {max(r['call_ms'] for r in res):.4f} ms, eager chain {max(r['eager_ms'] for r in res):.4f} ms "
+        f"a step; single-domain program at {DIST_GLOBAL} {single_ms:.4f} ms a call; path E's step at {DOMAIN} "
+        f"{path_e_ms:.4f} ms -- {card}")
+    log(f"time distributed ensemble {DIST_MEMBERS} x {DIST_ENS_GLOBAL} float64 (CUDA events, max over ranks): "
+        f"step {worst('ens_timings', 'seconds'):.4f} ms, exchanges {worst('ens_timings', 'exchange_seconds'):.4f} "
+        f"ms, group kernels {worst('ens_timings', 'groups_seconds'):.4f} ms -- {card}")
+    log(f"path I wall: single-domain runs {t_refs:.1f} s, ranks (spawn to exit) {t_ranks:.1f} s")
+
+    # the path's kernels at the rank's tile, timed here with the card to
+    # themselves: each distributed group one-member and member-batched (the
+    # buffers the plan exchanges padded to its depth), and hdiff
+    lprog = climate.build_program("cuda", DIST_LOCAL, name="climate_step")
+    dplan = DistributedStepPlan(lprog, {n: torch.empty(DIST_LOCAL, dtype=torch.float64, device="meta")
+                                        for n in climate.FIELD_NAMES}, scalars, DIST_LOCAL, {})
+    sc = {**dplan.const_scalars, **scalars}
+    d = dplan.depth
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shared = ("u", "v", "w")
+
+    def tile_fields(obj, members=None):
+        out = {}
+        for n in obj.field_info:
+            shape = (DIST_LOCAL[0] + 2 * d, DIST_LOCAL[1] + 2 * d, DIST_LOCAL[2])
+            if members is not None and n not in shared:
+                shape = (members,) + shape
+            t = storage.card_tensor(shape, torch.float64, dev)
+            if n in ("u", "v"):
+                t.fill_(0.8 if n == "u" else -0.4)
+            elif n == "w":
+                t.copy_(0.2 * torch.rand(shape, generator=gen, device=dev, dtype=torch.float64))
+            else:
+                t.copy_(torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
+            out[n] = t
+        return out
+
+    def kernel_vs_plain(launch, plain, fields, written):
+        """(kernel ms, plain ms, max |kernel - plain| of the written fields)."""
+        before = {n: t.clone() for n, t in fields.items()}
+        plain()
+        want = {n: fields[n].clone() for n in written}
+        for n, t in before.items():
+            fields[n].copy_(t)
+        launch()
+        torch.cuda.synchronize()
+        err = max(float((fields[n] - want[n]).abs().max()) for n in written)
+        return cuda_ms(launch, iters=50), cuda_ms(plain, iters=3), err
+
+    rows = []
+    members = r0["ens_report"]["members_per_shard"]
+    for gi, obj in enumerate(dplan.group_objects):
+        name = "+".join(n.replace("_defs", "") for n in r0["report"]["group_stencils"][gi])
+        origins = {n: (d, d, 0) for n in obj.field_info}
+        written = sorted(set(obj.implementation_ir.written_api_fields()))
+        fields = tile_fields(obj)
+        ms, plain_ms, err = kernel_vs_plain(obj.kernel.prepare(fields, sc, DIST_LOCAL, origins),
+                                            lambda: obj._run(fields, sc, DIST_LOCAL, origins), fields, written)
+        bound_ms, bound_by, nbytes, _f = stencil_bound(obj, DIST_LOCAL)
+        log(f"time distributed group {gi} [{name}] {DIST_LOCAL} float64 (haloed to depth {d}): kernel {ms:.4f} ms, "
+            f"plain torch {plain_ms:.4f} ms, no single PyTorch call, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB); max |kernel - plain| {err:.3e} -- {card}")
+        rows.append({"name": f"distributed_program.{name}", "route": "cuda",
+                     "source": "src/repro_torch/core/codegen_cuda.py",
+                     "replaces": "src/repro/core/codegen_pallas.py:123", "launches": r0["program_launches"][gi],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "ranks": world})
+        fields = tile_fields(obj, members)
+        batched = obj.block_kernel(None, ())
+
+        def plain_members(obj=obj, fields=fields, origins=origins):
+            for m in range(members):
+                obj._run({n: (t if n in shared else t[m]) for n, t in fields.items()}, sc, DIST_LOCAL, origins)
+
+        ms, plain_ms, err = kernel_vs_plain(batched.prepare(fields, sc, DIST_LOCAL, origins, members=members),
+                                            plain_members, fields, written)
+        bound_ms, bound_by, nbytes, _f = stencil_bound(obj, DIST_LOCAL, members, shared)
+        log(f"time distributed member-batched group {gi} [{name}] {members} x {DIST_LOCAL} float64: kernel "
+            f"{ms:.4f} ms, plain torch member by member {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB); max |kernel - plain| {err:.3e} -- {card}")
+        rows.append({"name": f"distributed_ensemble.{name}", "route": "cuda",
+                     "source": "src/repro_torch/core/codegen_cuda.py",
+                     "replaces": "src/repro/core/codegen_pallas.py:123", "launches": r0["ens_launches"][gi],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "ranks": world, "members": members})
+        del fields
+    hd = hdiff_ops.stencil_object("float64")
+    hshape = (DIST_LOCAL[0] + 2 * H, DIST_LOCAL[1] + 2 * H, DIST_LOCAL[2])
+    fields = {n: storage.card_tensor(hshape, torch.float64, dev) for n in ("in_phi", "out_phi")}
+    fields["in_phi"].copy_(torch.randn(hshape, generator=gen, device=dev, dtype=torch.float64))
+    fields["out_phi"].zero_()
+    horig = {n: (H, H, 0) for n in fields}
+    ms, plain_ms, err = kernel_vs_plain(hd.kernel.prepare(fields, {"alpha": HDIFF_ALPHA}, DIST_LOCAL, horig),
+                                        lambda: hd._run(fields, {"alpha": HDIFF_ALPHA}, DIST_LOCAL, horig),
+                                        fields, ["out_phi"])
+    bound_ms, bound_by, nbytes, _f = stencil_bound(hd, DIST_LOCAL)
+    log(f"time distributed hdiff {DIST_LOCAL} float64: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB); max |kernel - plain| {err:.3e} -- {card}")
+    rows.append({"name": "distributed_hdiff", "route": "cuda", "source": "src/repro_torch/core/codegen_cuda.py",
+                 "replaces": "src/repro/kernels/hdiff/ops.py:28", "launches": r0["hdiff_launches"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None, "ranks": world})
+    for row in rows:
+        if not row["max_abs_err"] <= 1e-12:
+            raise AssertionError(f"{row['name']}: the kernel differs from its plain version by {row['max_abs_err']}")
+    return rows
 
 
 def main() -> int:
@@ -2005,7 +2432,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
 
-    report, walls, card = paths_a_to_g()
+    report, walls, card, path_e_ms = paths_a_to_g()
+    # path I: its ranks share the card and exit before path H
+    torch.cuda.empty_cache()
+    report += path_i(card, path_e_ms)
+    walls.mark("path I")
     # path H runs after every earlier path's tensors are freed: Moonlight's
     # bf16 weights alone take 57.8 GB
     report += lm_families(torch.device("cuda"), card, {arch: get_arch(arch).full for arch, _p, _r in H_MODELS})

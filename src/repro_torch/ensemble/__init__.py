@@ -19,8 +19,8 @@ members (the generated kernel's member grid axis)::
 Modules: ``batch`` (member-batched storage allocation), ``perturb``
 (counter-based member initialization, one generator a member), ``stats``
 (fused statistics emitted through the stencil IR), ``compile`` (the
-member-batched ensemble compiler).  Members × domain sharding (the
-reference's ``DistributedEnsemble``) is not ported yet.
+member-batched ensemble compiler, and ``DistributedEnsemble``: members ×
+domain tiles on a device mesh, one process per rank).
 """
 
 from . import batch
@@ -34,11 +34,12 @@ from .batch import (
     scatter_members,
     storage_for_domain,
 )
-from .compile import Ensemble
+from .compile import DistributedEnsemble, Ensemble
 from .perturb import member_keys, normal_noise, perturb, spread_inflation, uniform_noise
 from .stats import STAT_FIELDS, EnsembleStatistics, build_ensemble_stats, stats_definition
 
 __all__ = [
+    "DistributedEnsemble",
     "Ensemble",
     "EnsembleError",
     "EnsembleStatistics",

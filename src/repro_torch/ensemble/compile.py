@@ -33,8 +33,10 @@ the BATCHED operand shapes (the tune store keys on the full geometry), so a
 member-batched launch never reuses a block tuned for one member
 (``_CompiledEnsemble.batched_runs``).
 
-(The reference package's ``repro/ensemble/compile.py``; ``distribute()``
-waits for the distributed programs.)
+``distribute(mesh, member_axis=...)`` co-shards members and domain tiles
+over a device mesh (``DistributedEnsemble``).
+
+(The reference package's ``repro/ensemble/compile.py``.)
 """
 
 from __future__ import annotations
@@ -46,8 +48,15 @@ import torch
 
 from repro_torch.core import caching
 from repro_torch.core.storage import TORCH_BACKENDS, Storage
+from repro_torch.launch.mesh import axis_size
 from repro_torch.obs import trace as otrace
-from repro_torch.program.compile import CompiledProgram, CudaGroupRun, ProgramObject
+from repro_torch.program.compile import (
+    CompiledProgram,
+    CudaGroupRun,
+    DistributedProgram,
+    ProgramObject,
+    run_rank_steps,
+)
 from repro_torch.program.trace import ProgramError
 
 from .batch import EnsembleError, member_sample
@@ -160,11 +169,9 @@ class Ensemble:
         """The fused statistics stencil sized for this ensemble."""
         return EnsembleStatistics(self.members, self.prog.backend, dtype=dtype, **backend_opts)
 
-    def distribute(self, mesh, **kwargs):
-        raise NotImplementedError(
-            "distribute(): members x domain sharding (the reference's DistributedEnsemble) is not "
-            "ported yet; see ROADMAP.md, Queue 1, distribution"
-        )
+    def distribute(self, mesh, **kwargs) -> "DistributedEnsemble":
+        """Members x domain tiles on ``mesh``: see :class:`DistributedEnsemble`."""
+        return DistributedEnsemble(self, mesh, **kwargs)
 
     def __repr__(self) -> str:
         return f"Ensemble({self.prog.name!r}, members={self.members}, backend={self.prog.backend!r})"
@@ -300,3 +307,102 @@ class _CompiledEnsemble:
             exec_info["run_end_time"] = time.perf_counter()
         keep = {b for b, batched in self.pattern.items() if batched} | set(self.cp.outputs)
         return {b: vals[b] for b in keep}
+
+
+# ---------------------------------------------------------------------------
+# Member × domain sharding
+# ---------------------------------------------------------------------------
+
+
+class DistributedEnsemble:
+    """Members × domain tiles co-sharded over a 3-D device mesh.
+
+    The horizontal plane is block-decomposed exactly as
+    :class:`~repro_torch.program.compile.DistributedProgram` does (the same
+    per-rank step, the same minimal halo-exchange plan) while the members
+    split over ``member_axis``.  A rank advances its local members together:
+    each planned exchange ships one stripe carrying every local member, and
+    on the ``cuda`` backend and CUDA tensors each group is one launch of its
+    member-batched kernel for all of them (the reference's ``jax.vmap``
+    inside ``shard_map``).
+
+    The reference takes GLOBAL arrays; here, as for ``DistributedProgram``,
+    every rank calls with its own LOCAL blocks: member-batched fields as
+    ``(members_per_shard, ni, nj, nk)``, shared fields as ``(ni, nj, nk)``.
+    Only the rank-4 form of a bare tensor counts as batched (a batched
+    ``(I, J)`` field is rank 3, like an unbatched volume).  Scalars are
+    shared by all members.  The step runs in place, as
+    ``DistributedProgram``'s does.
+    """
+
+    def __init__(
+        self,
+        ensemble: Ensemble,
+        mesh,
+        *,
+        member_axis: str = "ens",
+        i_axis: str = "data",
+        j_axis: str = "model",
+        periodic: Tuple[bool, bool] = (False, False),
+    ):
+        self.ensemble = ensemble
+        self.dp = DistributedProgram(ensemble.prog, mesh, i_axis=i_axis, j_axis=j_axis, periodic=periodic)
+        self.mesh = mesh
+        self.member_axis = member_axis
+        self.m_size = axis_size(mesh, member_axis)
+        if ensemble.members % self.m_size:
+            raise EnsembleError(
+                f"{ensemble.members} members must tile over the {self.m_size}-way "
+                f"{member_axis!r} mesh axis"
+            )
+        self.local_members = ensemble.members // self.m_size
+
+    def __call__(self, fields: Dict[str, Any], scalars: Optional[Dict[str, Any]] = None, *,
+                 exec_info: Optional[dict] = None) -> Dict[str, Any]:
+        """One step of this rank's members; the output binding, local blocks."""
+        return self._run(1, fields, scalars, exec_info, iterate=False)
+
+    def iterate(self, n: int, fields: Dict[str, Any], scalars: Optional[Dict[str, Any]] = None, *,
+                exec_info: Optional[dict] = None) -> Dict[str, Any]:
+        """``n`` steps of this rank's members (a rotation-closed program)."""
+        return self._run(int(n), fields, scalars, exec_info, iterate=True)
+
+    def _run(self, n: int, fields, scalars, exec_info, iterate: bool) -> Dict[str, Any]:
+        scalars = dict(scalars or {})
+        per_member = sorted(k for k, v in scalars.items() if getattr(v, "ndim", 0) == 1)
+        if per_member:
+            raise EnsembleError(f"distributed ensemble {self.ensemble.name!r}: scalars are shared by the "
+                                f"members; {per_member} hold one value a member")
+        raw = {k: (v.data if isinstance(v, Storage) else v) for k, v in fields.items()}
+        batched = {k: (fields[k].is_member_batched if isinstance(fields[k], Storage) else v.dim() == 4)
+                   for k, v in raw.items()}
+        if not any(batched.values()):
+            raise EnsembleError(
+                f"distributed ensemble {self.ensemble.name!r} called with no member-batched "
+                "field (expected a leading member axis on the forecast state)"
+            )
+        for k, b in batched.items():
+            if b and int(raw[k].shape[0]) != self.local_members:
+                raise EnsembleError(f"field {k!r} holds {int(raw[k].shape[0])} members on this rank, "
+                                    f"expected {self.local_members} of {self.ensemble.members}")
+        samples = {k: (v[0] if batched[k] else v) for k, v in raw.items()}
+        local, key = self.dp._geometry(samples)
+        plan = self.dp._plan_for(samples, scalars, local, key)
+        written = set().union(*plan.group_writes) - set(plan.alloc_internals)
+        bad = sorted(b for b in written | set(plan.outputs.values()) if not batched.get(b, False))
+        if bad:
+            raise EnsembleError(f"distributed ensemble outputs rebind or write {bad}, which are not "
+                                "member-batched")
+        if iterate and plan.iterable_reason is not None:
+            raise ProgramError(f"ensemble {self.ensemble.name!r} cannot iterate: {plan.iterable_reason}")
+        device = next(iter(raw.values())).device
+        step = self.dp._step_for(plan, key, device, self.local_members, batched)
+        report = {
+            "members": self.ensemble.members,
+            "member_axis": self.member_axis,
+            "members_per_shard": self.local_members,
+            "batched_fields": sorted(k for k, b in batched.items() if b),
+            "program_report": dict(plan.report),
+        }
+        return run_rank_steps(step, n, raw, {**plan.const_scalars, **scalars}, exec_info, iterate,
+                              "ensemble_report", report)

@@ -1,2 +1,4 @@
 """Launch layer of the port: the forecast-serving driver
-(``python -m repro_torch.launch.serve``, the CLI over ``repro_torch.serving``)."""
+(``python -m repro_torch.launch.serve``, the CLI over ``repro_torch.serving``),
+device meshes over the process group (``mesh``), and one process per rank
+(``ranks.run_ranks``)."""

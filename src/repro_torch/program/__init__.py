@@ -20,11 +20,14 @@ generated Hopper kernel::
     step(phi, u, v, adv, phi_new, dt=..., dx=..., dy=...)   # one launch per group
     step.iterate(100, ...)                                   # 100 steps, host loop
 
-Mesh-sharded programs (the reference's ``distribute()``) are not ported yet.
+On a device mesh, one process per rank, ``step.distribute(mesh)`` runs the
+same groups on each rank's block with the minimal halo exchanges between
+them (``halo`` plans them, ``repro_torch.parallel.halo`` runs them).
 """
 
 from .compile import (
     CompiledProgram,
+    DistributedProgram,
     ProgramCompileError,
     ProgramObject,
     program,
@@ -35,6 +38,7 @@ __all__ = [
     "program",
     "ProgramObject",
     "CompiledProgram",
+    "DistributedProgram",
     "ProgramError",
     "ProgramTraceError",
     "ProgramCompileError",

@@ -32,8 +32,12 @@ buffers that any later node reads off-center stay API fields of the merged
 stencil (so their stale-halo semantics — reads of points no stencil wrote —
 are byte-for-byte those of the eager call sequence).
 
-(The reference package's ``repro/program/compile.py``; ``distribute()`` and
-the distributed program are not ported yet.)
+``distribute(mesh)`` runs the program on a device mesh
+(``DistributedProgram``): every rank runs the same per-rank step on its own
+block, the fused groups with the minimal halo exchanges of ``program.halo``
+between them (``parallel.halo``).
+
+(The reference package's ``repro/program/compile.py``.)
 """
 
 from __future__ import annotations
@@ -45,9 +49,13 @@ import torch
 
 from repro_torch.core import caching, codegen_cuda, ir
 from repro_torch.core import stencil as stencil_mod
-from repro_torch.core.storage import TORCH_BACKENDS, Storage
+from repro_torch.core.storage import TORCH_BACKENDS, Storage, card_tensor
+from repro_torch.launch.mesh import axis_size
 from repro_torch.obs import trace as otrace
+from repro_torch.parallel import halo as halo_exchange
+from repro_torch.parallel.halo import HaloExchange
 
+from . import halo as halo_planning
 from .graph import ProgramGraph
 from .passes import (
     Group,
@@ -273,8 +281,11 @@ class CudaGroupRun:
 
 
 class ProgramPlan:
-    """The front half of program compilation: dead-store elimination,
-    grouping, buffer internalization, and the spliced+built group stencils."""
+    """The shared front half of program compilation: dead-store elimination,
+    grouping, buffer internalization, and the spliced+built group stencils.
+    The single-rank and the distributed compilers consume this one object,
+    so their planning cannot drift; they differ in what they execute (a
+    generated orchestrator, or a per-rank step with halo exchanges)."""
 
     def __init__(
         self,
@@ -283,6 +294,8 @@ class ProgramPlan:
         backend: str,
         backend_opts,
         validate_args: bool,
+        *,
+        distributed: bool,
     ):
         nodes, dropped = eliminate_dead_stores(graph)
         check_not_empty(nodes)
@@ -291,17 +304,25 @@ class ProgramPlan:
         self.dropped = dropped
         self.stencil_nodes = graph.stencil_nodes()
         self.node_index = {id(n): i for i, n in enumerate(self.stencil_nodes)}
-        self.groups, self.markers = plan_groups(graph, nodes, split_halo_crossing=backend == "cuda")
+        self.groups, self.markers = plan_groups(
+            graph,
+            nodes,
+            distributed=distributed,
+            split_halo_crossing=distributed or backend == "cuda",
+        )
         _inputs, _out_buffers, internals = graph.classify()
-        # internalizing a buffer is only value-preserving when every access
-        # agrees on geometry (same compute domain, same buffer origin): the
-        # eager path addresses one shared allocation, and positional
-        # agreement is what lets a bare domain-sized temporary replace it
-        geo: Dict[str, set] = {}
-        for n in self.stencil_nodes:
-            for b in set(n.field_bind.values()):
-                geo.setdefault(b, set()).add((n.domain, n.origins[b]))
-        internals = [b for b in internals if len(geo.get(b, set())) <= 1]
+        if not distributed:
+            # internalizing a buffer is only value-preserving when every
+            # access agrees on geometry (same compute domain, same buffer
+            # origin): the eager path addresses one shared allocation, and
+            # positional agreement is what lets a bare domain-sized temporary
+            # replace it.  On a mesh geometry is planner-controlled (uniform
+            # local domain, per-field padding), so the filter does not apply.
+            geo: Dict[str, set] = {}
+            for n in self.stencil_nodes:
+                for b in set(n.field_bind.values()):
+                    geo.setdefault(b, set()).add((n.domain, n.origins[b]))
+            internals = [b for b in internals if len(geo.get(b, set())) <= 1]
         # a buffer only becomes a stencil temporary when one group owns every
         # access; internals crossing groups are materialized by the runtime
         # instead (they still never escape the program)
@@ -347,7 +368,7 @@ class CompiledProgram:
         self.graph = graph
         self.backend = backend
         t0 = time.perf_counter()
-        plan = ProgramPlan(name, graph, backend, backend_opts, validate_args)
+        plan = ProgramPlan(name, graph, backend, backend_opts, validate_args, distributed=False)
         self.nodes = plan.nodes
         self._node_index = plan.node_index
         groups = plan.groups
@@ -683,11 +704,9 @@ class ProgramObject:
         self._writeback(fields, {b: vals[b] for b in fields if b in vals})
         return {o: vals[o] for o in cp.outputs}
 
-    def distribute(self, mesh, **kwargs):
-        raise NotImplementedError(
-            "distribute(): mesh-sharded programs (the reference's DistributedProgram and "
-            "program/halo.py) are not ported yet; see ROADMAP.md, Queue 1, distribution"
-        )
+    def distribute(self, mesh, **kwargs) -> "DistributedProgram":
+        """This program on ``mesh``, one process per rank: see :class:`DistributedProgram`."""
+        return DistributedProgram(self, mesh, **kwargs)
 
     def ensemble(self, members: int, **kwargs):
         """An :class:`repro_torch.ensemble.Ensemble` of this program:
@@ -729,3 +748,375 @@ def program(
     if definition is not None:
         return _impl(definition)
     return _impl
+
+
+# ---------------------------------------------------------------------------
+# Distributed programs (one process per rank, planned halo exchanges)
+# ---------------------------------------------------------------------------
+
+
+class DistributedStepPlan:
+    """A distributed program planned for one local geometry: the groups
+    (built once), the minimal halo-exchange plan (``program.halo``) and what
+    each group reads and writes; shared by ``DistributedProgram`` (calls and
+    ``iterate``) and the ensemble layer's member-batched step."""
+
+    def __init__(self, prog: "ProgramObject", fields: Dict[str, Any], scalars: Dict[str, Any],
+                 local_domain: Tuple[int, int, int], mesh_shape: Dict[str, int]):
+        graph = ProgramGraph(prog.trace(fields, scalars))
+        # geometry is planner-controlled: per-rank validation is meaningless
+        pplan = ProgramPlan(f"{prog.name}_dist", graph, prog.backend, prog.backend_opts, False, distributed=True)
+        temp = set(pplan.temp_internals)
+        self.backend = prog.backend
+        self.buffers = graph.buffers
+        self.local_domain = tuple(int(d) for d in local_domain)
+        self.group_objects = pplan.group_objects
+        self.halo = halo_planning.plan_halo_exchanges(graph, pplan.groups, pplan.markers)
+        self.depth = max((op.halo for op in self.halo.exchanges), default=0)  # of every padded buffer
+        self.const_scalars = dict(pplan.const_scalars)
+        self.outputs = dict(pplan.outputs)
+        self.alloc_internals = list(pplan.alloc_internals)
+        self.group_buffers = [[b for b in g.buffers() if b not in temp] for g in pplan.groups]
+        self.group_writes = [{b for n in g.nodes for b in graph.node_writes(n)} - temp for g in pplan.groups]
+        self.iterable_reason = validate_iterable(graph)
+        self.report = {**pplan.base_report(), "backend": prog.backend, "mesh": dict(mesh_shape),
+                       "halo_plan": self.halo.summary()}
+
+
+class _Padded:
+    """A padded buffer of a rank step: zeros at allocation, its interior a
+    fixed view.  ``source`` is the tensor the interior was last copied from
+    while both still agree (None once a group writes either)."""
+
+    def __init__(self, padded: torch.Tensor, depth: int, lead: int):
+        self.padded, self.depth, self.lead = padded, depth, lead
+        self.view = halo_exchange.interior(padded, depth, lead)
+        self.origin = (depth, depth, 0)
+        self.source: Optional[torch.Tensor] = None
+
+    def fits(self, x: torch.Tensor, lead: int) -> bool:
+        v = self.view
+        return lead == self.lead and v.shape == x.shape and v.dtype == x.dtype and v.device == x.device
+
+
+class _StepTimer:
+    """Time of a run, and of its exchanges and group runs: CUDA events on the
+    card (recorded on the stream, read once at the end), else the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.card = device.type == "cuda"
+        self.spans: Dict[str, list] = {"exchange": [], "groups": []}
+        self.start = self.mark()
+
+    def mark(self):
+        if not self.card:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def result(self, steps: int) -> Dict[str, Any]:
+        end = self.mark()
+        if self.card:
+            torch.cuda.synchronize()
+
+        def seconds(a, b):
+            return a.elapsed_time(b) / 1e3 if self.card else b - a
+
+        out = {"clock": "cuda_events" if self.card else "host", "steps": int(steps),
+               "seconds": seconds(self.start, end)}
+        for kind, spans in self.spans.items():
+            out[f"{kind}_seconds"] = sum(seconds(a, b) for a, b in spans)
+            out[f"{kind}_count"] = len(spans)
+        return out
+
+
+class _RankStep:
+    """One rank's step of a ``DistributedStepPlan`` on one device.
+
+    The step runs the plan's exchanges and groups in place.  A buffer the
+    plan exchanges is copied once into a padded buffer of this step (depth
+    ``plan.depth``, in the backend's storage layout) and the name is rebound
+    to the padded buffer's interior; groups read and write it there, so from
+    then on an exchange only fills rims: in an ``iterate`` the padded
+    buffers rotate with the names and no interior is copied.  Padded buffers
+    are allocated once and reused by whichever name needs one while no other
+    name holds it.  ``release`` binds every name back to a caller's tensor.
+
+    ``members`` (an ensemble's local members) puts a member axis in front of
+    the ``batched`` buffers: one exchange and, on the card, one launch a group
+    cover every member; the plain modules run member by member.
+    """
+
+    def __init__(self, plan: DistributedStepPlan, exchange, device: torch.device,
+                 members: Optional[int] = None, batched: Optional[Dict[str, bool]] = None):
+        self.plan, self.exchange = plan, exchange
+        self.members = members
+        self.batched = dict(batched or {})
+        if members is not None:
+            self.batched.update({b: True for b in plan.alloc_internals})
+        self.card_layout = plan.backend == "cuda"
+        if plan.backend == "cuda" and device.type == "cuda":
+            self.runs = [CudaGroupRun(obj, members=members, member_scalars=(), domain=plan.local_domain)
+                         for obj in plan.group_objects]
+        elif members is None:
+            self.runs = [obj._run for obj in plan.group_objects]
+        else:
+            self.runs = [self._member_by_member(obj) for obj in plan.group_objects]
+        self._pool: List[_Padded] = []
+        self._by_view: Dict[int, _Padded] = {}
+        self._alloc: Dict[str, torch.Tensor] = {}
+        self.device = device
+
+    def _member_by_member(self, obj) -> Callable:
+        def run(fields, scalars, domain, origins):
+            for m in range(self.members):
+                obj._run({b: (v[m] if self.batched.get(b) else v) for b, v in fields.items()},
+                         scalars, domain, origins)
+
+        return run
+
+    def _entry(self, x) -> Optional[_Padded]:
+        e = self._by_view.get(id(x))
+        return e if e is not None and e.view is x else None
+
+    def _padded(self, vals: Dict[str, Any], b: str) -> _Padded:
+        """The padded buffer that holds ``b``: the one it is bound to, else a
+        free one with the interior copied in."""
+        x = vals[b]
+        e = self._entry(x)
+        if e is not None:
+            return e
+        lead = 1 if self.batched.get(b) else 0
+        live = {id(v) for v in vals.values()}
+        e = next((p for p in self._pool if id(p.view) not in live and p.fits(x, lead)), None)
+        if e is None:
+            e = _Padded(halo_exchange.padded_like(x, self.plan.depth, lead, card=self.card_layout),
+                        self.plan.depth, lead)
+            self._pool.append(e)
+            self._by_view[id(e.view)] = e
+        e.view.copy_(x)
+        e.source = x
+        vals[b] = e.view
+        return e
+
+    def _internal(self, b: str) -> torch.Tensor:
+        """A cross-group temporary, zeroed every step (the reference's fresh zeros)."""
+        t = self._alloc.get(b)
+        if t is None:
+            info = self.plan.buffers[b]
+            shape = (() if self.members is None else (self.members,)) + _domain_shape(self.plan.local_domain,
+                                                                                      info.axes)
+            dtype = getattr(torch, info.dtype)
+            if self.card_layout and info.axes == ("I", "J", "K"):
+                t = card_tensor(shape, dtype, self.device, "zeros")
+            else:
+                t = torch.zeros(shape, dtype=dtype, device=self.device)
+            self._alloc[b] = t
+        else:
+            t.zero_()
+        return t
+
+    def step(self, vals: Dict[str, Any], scalars: Dict[str, Any], timer: Optional[_StepTimer] = None) -> None:
+        """One step on ``vals`` (name → tensor), in place: exchanged names
+        end up bound to padded buffers' interiors."""
+        plan = self.plan
+        for b in plan.alloc_internals:
+            vals[b] = self._internal(b)
+        for gi, run in enumerate(self.runs):
+            for op in plan.halo.before_group(gi):
+                e = self._padded(vals, op.buffer)
+                t0 = timer.mark() if timer else None
+                self.exchange.fill(e.padded, op.halo, e.depth, e.lead)
+                if timer:
+                    timer.spans["exchange"].append((t0, timer.mark()))
+            fields, origins = {}, {}
+            for b in plan.group_buffers[gi]:
+                e = self._entry(vals[b])
+                fields[b], origins[b] = (e.padded, e.origin) if e is not None else (vals[b], (0, 0, 0))
+            t0 = timer.mark() if timer else None
+            run(fields, scalars, plan.local_domain, origins)
+            if timer:
+                timer.spans["groups"].append((t0, timer.mark()))
+            written = {id(vals[b]) for b in plan.group_writes[gi]}
+            for e in self._pool:  # a write ends the agreement of a copy and its source
+                if id(e.view) in written or (e.source is not None and id(e.source) in written):
+                    e.source = None
+
+    def release(self, vals: Dict[str, Any], fields: Dict[str, Any]) -> Dict[str, Any]:
+        """``vals`` with every caller's name bound to a caller's tensor again.
+
+        A name held by a padded buffer gets back the tensor its interior was
+        copied from when the two still agree (no copy); else its own tensor,
+        or, after a rotation moved tensors between names, another free one,
+        into which the interior is copied."""
+        names = [n for n in fields if n in vals]
+        pooled = [n for n in names if self._entry(vals[n]) is not None]
+        if not pooled:
+            return vals
+        held = {id(vals[n]) for n in names if n not in pooled}
+        free = {id(fields[n]): fields[n] for n in names if id(fields[n]) not in held}
+        out = dict(vals)
+        rest = []
+        for n in pooled:
+            src = self._entry(vals[n]).source
+            if src is not None and id(src) in free:
+                out[n] = free.pop(id(src))
+            else:
+                rest.append(n)
+        for n in rest:
+            view = vals[n]
+            t = free.pop(id(fields[n]), None)
+            if t is None:
+                t = free.popitem()[1] if free else torch.empty_like(fields[n])
+            t.copy_(view)
+            out[n] = t
+        return out
+
+
+class DistributedProgram:
+    """A traced program run on a device mesh, one process per rank.
+
+    The horizontal plane is block-decomposed exactly as
+    ``stencils.distributed.DistributedStencil`` does, but the whole step runs
+    with the minimal halo-exchange schedule of ``program.halo``: a field is
+    exchanged only before the first group that reads it off-center since its
+    last write, at exactly the depth that group needs.
+
+    The reference is one controller (one ``shard_map`` jit over GLOBAL
+    arrays).  Here every rank of ``mesh`` calls with its own LOCAL blocks,
+    ``(ni, nj, nk)`` (``parallel.halo.shard_blocks``), and runs the same
+    per-rank step: the planned exchanges (``parallel.halo.HaloExchange``)
+    and one run per group, which on the ``cuda`` backend and CUDA tensors is
+    one launch of the group's kernel.  As the port's single-rank programs do,
+    the step runs in place: the caller's tensor of each written field holds
+    its new value, and the returned output binding hands back the caller's
+    tensors.  ``iterate(n)`` is a host loop over the same step.
+    """
+
+    def __init__(
+        self,
+        prog: "ProgramObject",
+        mesh,
+        *,
+        i_axis: str = "data",
+        j_axis: str = "model",
+        periodic: Tuple[bool, bool] = (False, False),
+    ):
+        if prog.backend not in TORCH_BACKENDS:
+            raise ProgramError("DistributedProgram requires a torch/cuda-backend program")
+        self.prog = prog
+        self.mesh = mesh
+        self.i_axis, self.j_axis = i_axis, j_axis
+        self.exchange = HaloExchange(mesh, i_axis, j_axis, periodic)
+        self.periodic = tuple(periodic)
+        self._plans: Dict[Any, DistributedStepPlan] = {}
+        self._steps: Dict[Any, _RankStep] = {}
+
+    # -- planning ----------------------------------------------------------
+
+    def mesh_shape(self) -> Dict[str, int]:
+        return {n: axis_size(self.mesh, n) for n in self.mesh.mesh_dim_names}
+
+    def _geometry(self, fields: Dict[str, Any]):
+        """(local domain, cache key) of this rank's interior-only blocks."""
+        from repro_torch.stencils.distributed import local_domain
+
+        for n, v in fields.items():
+            if not isinstance(v, torch.Tensor):
+                raise TypeError(f"distributed program {self.prog.name!r}: field {n!r} must be this rank's "
+                                f"local block as a tensor, got {type(v).__name__}")
+        local = local_domain(fields)
+        key = (tuple(sorted((n, tuple(v.shape), str(v.dtype)) for n, v in fields.items())), local)
+        return local, key
+
+    def _plan_for(self, fields, scalars, local, key) -> DistributedStepPlan:
+        if key not in self._plans:
+            self._plans[key] = DistributedStepPlan(self.prog, fields, scalars, local, self.mesh_shape())
+        return self._plans[key]
+
+    def _step_for(self, plan: DistributedStepPlan, key, device, members=None, batched=None) -> _RankStep:
+        skey = (key, str(device), members, tuple(sorted((batched or {}).items())))
+        step = self._steps.get(skey)
+        if step is None:
+            step = self._steps[skey] = _RankStep(plan, self.exchange, device, members, batched)
+        return step
+
+    def plan(self, fields: Dict[str, Any], scalars: Optional[Dict[str, Any]] = None) -> DistributedStepPlan:
+        """The step planned for these local blocks (once per geometry): its
+        groups' stencil objects count their launches."""
+        local, key = self._geometry(fields)
+        return self._plan_for(fields, dict(scalars or {}), local, key)
+
+    def _prepare(self, fields, scalars):
+        local, key = self._geometry(fields)
+        plan = self._plan_for(fields, scalars, local, key)
+        device = next(iter(fields.values())).device
+        return plan, self._step_for(plan, key, device)
+
+    # -- execution ---------------------------------------------------------
+
+    def __call__(
+        self,
+        fields: Dict[str, Any],
+        scalars: Optional[Dict[str, Any]] = None,
+        *,
+        exec_info: Optional[dict] = None,
+    ) -> Dict[str, Any]:
+        """``fields``: this rank's LOCAL (interior-only) blocks keyed by
+        program field name.  Returns the output binding, local blocks."""
+        return self._run(1, fields, scalars, exec_info, iterate=False)
+
+    def iterate(
+        self,
+        n: int,
+        fields: Dict[str, Any],
+        scalars: Optional[Dict[str, Any]] = None,
+        *,
+        exec_info: Optional[dict] = None,
+    ) -> Dict[str, Any]:
+        """``n`` steps, the minimal exchange plan applied on every one.
+
+        Requires a rotation-closed output binding (the contract of
+        ``ProgramObject.iterate``): every output name rebinds a program field
+        of identical geometry.  Returns the output binding after step ``n``.
+        """
+        return self._run(int(n), fields, scalars, exec_info, iterate=True)
+
+    def _run(self, n: int, fields, scalars, exec_info, iterate: bool) -> Dict[str, Any]:
+        scalars = dict(scalars or {})
+        plan, step = self._prepare(fields, scalars)
+        if iterate and plan.iterable_reason is not None:
+            raise ProgramError(f"distributed program {self.prog.name!r} cannot iterate: {plan.iterable_reason}")
+        return run_rank_steps(step, n, fields, {**plan.const_scalars, **scalars}, exec_info, iterate,
+                              "program_report", plan.report)
+
+
+def run_rank_steps(step: _RankStep, n: int, fields: Dict[str, Any], scalars: Dict[str, Any],
+                   exec_info: Optional[dict], iterate: bool, report_key: str, report: Dict[str, Any]):
+    """``n`` steps of ``step`` from ``fields``; the output binding after the
+    last.  ``exec_info`` gets ``report`` under ``report_key`` (with
+    ``iterated_steps`` for an ``iterate``), and ``rank_timings``: this rank's
+    time of the run, and of its exchanges and group runs."""
+    plan = step.plan
+    timer = None
+    if exec_info is not None:
+        exec_info[report_key] = dict(report)
+        if iterate:
+            exec_info[report_key]["iterated_steps"] = int(n)
+        exec_info["run_start_time"] = time.perf_counter()
+        timer = _StepTimer(step.device)
+    vals = dict(fields)
+    for i in range(n):
+        step.step(vals, scalars, timer)
+        if iterate or i + 1 < n:
+            vals.update({o: vals[b] for o, b in plan.outputs.items()})
+    vals = step.release(vals, fields)
+    if iterate:
+        outs = {o: vals[o] for o in plan.outputs}
+    else:
+        outs = {o: vals[b] for o, b in plan.outputs.items()}
+    if exec_info is not None:
+        exec_info["rank_timings"] = timer.result(n)
+        exec_info["run_end_time"] = time.perf_counter()
+    return outs

@@ -3,7 +3,8 @@ upwind advection → Euler update → horizontal diffusion → implicit vertical
 transport (``vadv_system``) → Thomas solve (``vadv``), with a ``phi`` /
 ``phi_new`` double-buffer rotation.
 
-``eager_step`` calls the five stencils one after the other;
+``eager_step`` calls the five stencils one after the other (on a device mesh:
+``distributed_eager_step``, one ``DistributedStencil`` a stencil);
 ``build_program`` traces the same calls into a ``@program``, which the
 ``cuda`` backend fuses into two generated kernels, ``[advect, euler]`` and
 ``[diffuse, vadv_system, vadv]`` (diffuse reads ``phi_star`` at horizontal
@@ -37,15 +38,36 @@ def build_stencils(backend: str, **opts) -> Dict[str, Any]:
     return {n: build(d) for n, d in DEFINITIONS.items()}
 
 
+# the step's stencil calls in order: (stencil, the fields it takes, in its
+# parameter order, and its scalars)
+CALLS = (
+    ("advect", ("phi", "u", "v", "adv"), ("dx", "dy")),
+    ("euler", ("phi", "adv", "phi_star"), ("dt",)),
+    ("diffuse", ("phi_star", "phi_h"), ("alpha",)),
+    ("vadv_system", ("w", "phi_h", "a", "b", "c", "d"), ("dt", "dz")),
+    ("vadv", ("a", "b", "c", "d", "phi_new"), ()),
+)
+
+
 def eager_step(st: Dict[str, Any], f: Dict[str, Any], domain: Tuple[int, int, int], scalars: Dict[str, float]) -> None:
     """One step, one stencil call after the other, on the field dict ``f``
     (rotated in place: ``phi`` and ``phi_new`` swap)."""
-    st["advect"](f["phi"], f["u"], f["v"], f["adv"], dx=scalars["dx"], dy=scalars["dy"], domain=domain)
-    st["euler"](f["phi"], f["adv"], f["phi_star"], dt=scalars["dt"], domain=domain)
-    st["diffuse"](f["phi_star"], f["phi_h"], alpha=scalars["alpha"], domain=domain)
-    st["vadv_system"](f["w"], f["phi_h"], f["a"], f["b"], f["c"], f["d"],
-                      dt=scalars["dt"], dz=scalars["dz"], domain=domain)
-    st["vadv"](f["a"], f["b"], f["c"], f["d"], f["phi_new"], domain=domain)
+    for name, fields, scals in CALLS:
+        st[name](*(f[b] for b in fields), **{s: scalars[s] for s in scals}, domain=domain)
+    f["phi"], f["phi_new"] = f["phi_new"], f["phi"]
+
+
+def distributed_eager_step(dst: Dict[str, Any], f: Dict[str, Any], scalars: Dict[str, float]) -> None:
+    """One step on this rank's local blocks ``f``, one
+    ``stencils.distributed.DistributedStencil`` (``dst``, by stencil name)
+    call after the other, each exchanging every field it takes; the written
+    fields are rebound to the returned blocks, then ``phi`` and ``phi_new``
+    swap."""
+    for name, fields, scals in CALLS:
+        params = list(dst[name].stencil.field_info)
+        written = dst[name](dict(zip(params, (f[b] for b in fields))), {s: scalars[s] for s in scals})
+        for p, block in written.items():
+            f[fields[params.index(p)]] = block
     f["phi"], f["phi_new"] = f["phi_new"], f["phi"]
 
 

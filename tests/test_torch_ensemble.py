@@ -173,9 +173,37 @@ def test_inconsistent_calls_raise(steps, case, match):
         ens(**fields, **sc)
 
 
-def test_distribute_is_not_ported_yet(steps):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Ensemble(steps["cuda"], N).distribute(None)
+def test_distribute_is_not_ported_yet(steps, tmp_path):
+    """``distribute()`` is ported: on a one-rank 1 x 1 x 1 mesh the
+    distributed ensemble's step on the interiors (all N members on the rank,
+    u and v shared) equals the single-rank ensemble on zero-haloed storages
+    bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.ensemble import DistributedEnsemble
+    from repro_torch.launch.mesh import make_mesh
+
+    def zero_halo(a):
+        out = np.zeros_like(a)
+        out[..., H:-H, H:-H, :] = a[..., H:-H, H:-H, :]
+        return out
+
+    fields = _batched("cuda")
+    single = {n: storage.from_array(zero_halo(f.to_numpy()), backend="cuda", default_origin=f.default_origin,
+                                    axes=f.axes, device="cpu") for n, f in fields.items()}
+    local = {n: torch.from_numpy(f.to_numpy()[..., H:-H, H:-H, :].copy()) for n, f in fields.items()}
+    Ensemble(steps["cuda"], N)(**single, **SCALARS)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        dens = Ensemble(steps["cuda"], N).distribute(make_mesh((1, 1, 1), ("ens", "data", "model"), "cpu"),
+                                                      member_axis="ens")
+        assert isinstance(dens, DistributedEnsemble) and dens.local_members == N
+        info = {}
+        out = dens(local, SCALARS, exec_info=info)
+    finally:
+        dist.destroy_process_group()
+    assert info["ensemble_report"]["members_per_shard"] == N
+    np.testing.assert_array_equal(out["phi"].numpy(), single["phi"].to_numpy()[:, H:-H, H:-H, :])
 
 
 # ---------------------------------------------------------------------------

@@ -276,10 +276,36 @@ def test_cross_group_temporary_allocated_on_the_fields_device():
     assert torch.equal(f["phi"].data, e["phi_new"].data)
 
 
-def test_distribute_is_not_ported_yet():
+def test_distribute_is_not_ported_yet(tmp_path):
+    """``distribute()`` is ported: on a one-rank 1 x 1 mesh (axes of size 1
+    exchange nothing, even periodic) 3 calls and ``iterate(3)`` of the
+    distributed program on the interiors equal the program on zero-haloed
+    storages bit for bit, with 2 exchanges planned a step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.program import DistributedProgram
+
+    arrays = {n: np.pad(a[H:-H, H:-H], ((H, H), (H, H), (0, 0))) for n, a in _arrays().items()}
+    single = _port_fields("cuda", arrays)
     prog = climate.build_program("cuda", DOM, name="t_dist")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prog.distribute(None)
+    for _ in range(3):
+        prog(**single, **SCALARS)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        dp = prog.distribute(make_mesh((1, 1), ("data", "model"), "cpu"), periodic=(True, True))
+        assert isinstance(dp, DistributedProgram)
+        local = {n: torch.from_numpy(a[H:-H, H:-H].copy()) for n, a in arrays.items()}
+        info = {}
+        for t in range(3):
+            out = dp(local, SCALARS, exec_info=info if t == 0 else None)
+            local.update(out)
+        final = dp.iterate(3, {n: torch.from_numpy(a[H:-H, H:-H].copy()) for n, a in arrays.items()}, SCALARS)
+    finally:
+        dist.destroy_process_group()
+    assert info["program_report"]["halo_plan"]["inserted"] == 2
+    np.testing.assert_array_equal(local["phi"].numpy(), single["phi"].to_numpy()[H:-H, H:-H])
+    np.testing.assert_array_equal(final["phi"].numpy(), single["phi"].to_numpy()[H:-H, H:-H])
 
 
 # ---------------------------------------------------------------------------
