@@ -106,7 +106,21 @@ Phases, in order; any failure exits non-zero before the result line:
    over the zero-padded 518 x 518 x 80 domain, ``ops.hdiff``, each member
    alone); the step, its exchanges and its group kernels by CUDA events (max
    over ranks) beside the single-domain step; a failed or hung rank fails
-   the script. The distributed groups build in phase 2;
+   the script. The distributed groups build in phase 2; (J), run after path
+   H: training (``path_j``): ``RGLRUScan``'s gradient at (1, 4096, 2560)
+   against autograd through a float64 loop (and a == 0 exactly);
+   RecurrentGemma-2B at full width and depth trained for 6 steps of 4
+   microbatches of 1 x 4096 (float32 master weights and AdamW moments, bf16
+   compute, chunked attention, remat), 208 RG-LRU launches a step asserted
+   (forward, remat recompute and backward), the loss and grad norm finite
+   and the loss falling, every moment finite and every RG-LRU leaf's
+   non-zero, the step wall, tokens/s, share of bf16 peak, peak memory and a
+   ``torch.profiler`` breakdown of the last step; one microbatch's loss and
+   every leaf's gradient through the kernel against the plain scan; a
+   bit-exact restart of two reduced configs under deterministic algorithms
+   (a child process: ``chip_smoke.py --path-j-restart DIR``); one train step
+   of every reduced config; ``int8_compress`` on the card against the CPU;
+   the scan's forward and whole backward timed beside their bounds;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -193,6 +207,16 @@ H_MODELS = (
 )
 H_STEPS = 32  # greedy decode steps
 H_SLACK = 8  # cache rows past the last token
+# path J: RecurrentGemma-2B trained at full width and depth (2,658,736,640
+# parameters, float32 master weights, bf16 compute, chunked attention, remat),
+# SyntheticLMDataset(vocab 256000, seq 4096, seed 0), 6 steps of global batch
+# 4 (train_4k's 256, cut) as 4 microbatches of 1 x 4096, lr 3e-4, warmup 2
+J_ARCH, J_PARAMS = "recurrentgemma-2b", 2_658_736_640
+J_STEPS, J_BATCH, J_MICRO, J_SEQ, J_LR, J_WARMUP = 6, 4, 4, 4096, 3e-4, 2
+J_SCAN = (1, 4096, 2560)  # one microbatch's RG-LRU scan
+J_SCAN_REL = 1e-5  # (da, db, dh0) against autograd through a float64 loop, of the largest
+J_MODEL_REL = 1e-5  # a leaf's gradient through the kernel against the plain scan's, of its largest
+J_RGLRU_LEAVES = ("w_x", "conv_w", "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate", "lambda_param")
 
 
 def log(msg: str = "") -> None:
@@ -730,6 +754,400 @@ def lm_families(dev, card: str, configs) -> list:
             "bound_by": bound_by, "library_ms": lib_ms, "model": arch, "model_dtype": dtype,
         })
         del launch
+    return rows
+
+
+def path_j_restart(outdir: str) -> int:
+    """Path J's restart phase, in a child process that the parent starts with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (it must be set before CUDA
+    initialises): under ``torch.use_deterministic_algorithms(True)`` (cuBLAS
+    and the embedding backward are not deterministic by default), phi3-mini's
+    and RecurrentGemma's reduced configs train 8 steps straight on the card,
+    and again with a crash at step 6 and a restart from the step-4
+    checkpoint; prints whether each pair of final parameters is the same bits,
+    and the first differing leaf.  ``tests/test_torch_train_gpu.py`` runs the
+    same program."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime.loop import Trainer, _InjectedFault, make_train_step
+
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    for arch in ("phi3-mini-3.8b", "recurrentgemma-2b"):
+        states, seconds = [], []
+        for crash in (False, True):
+            cfg = get_arch(arch).reduced
+            model = build_model(cfg)
+            ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0)
+            ckpt = Path(outdir) / arch / ("crash" if crash else "straight")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            trainer = Trainer(model, ds, str(ckpt), ckpt_every=4,
+                              train_step=make_train_step(model, base_lr=1e-3, warmup_steps=2, total_steps=50))
+            hit = {"done": not crash}
+
+            def fault(step, hit=hit):
+                if step == 6 and not hit["done"]:
+                    hit["done"] = True
+                    raise _InjectedFault("node died")
+
+            t0 = time.perf_counter()
+            states.append(trainer.run(8, fault_hook=fault))
+            seconds.append(time.perf_counter() - t0)
+            if not hit["done"] or int(states[-1].step) != 8:
+                raise AssertionError(f"{arch}: the run ended at step {int(states[-1].step)}, fault hit {hit['done']}")
+        differ = [p for (p, a), (_q, b) in zip(states[0].params.leaves(), states[1].params.leaves())
+                  if not torch.equal(a, b)]
+        out[arch] = {"bit_exact": not differ, "first_differing": differ[:1], "leaves": len(states[0].params.leaves()),
+                     "device": str(states[1].params.leaves()[0][1].device), "seconds": seconds}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def path_j(dev, card: str) -> list:
+    """Path J: training on the card.  (1) ``RGLRUScan``'s gradient at
+    (1, 4096, 2560) against autograd through a float64 loop; (2)
+    RecurrentGemma-2B at full width and depth, ``J_STEPS`` steps through
+    ``init_train_state``/``make_train_step`` on ``SyntheticLMDataset``
+    batches, every launch read, the loss and grad norm finite, every moment
+    finite, the RG-LRU leaves' moments non-zero, the loss falling, a
+    ``torch.profiler`` breakdown of the last step; (3) one microbatch's loss
+    and every leaf's gradient through the kernel against
+    ``build_model(cfg, rglru_scan_ref)``; (4) the restart phase
+    (``path_j_restart``, a child process); (5) one train step of each of the
+    10 reduced configs; (6) ``int8_compress`` on the card against the CPU.
+    Returns the kernels' report rows ``rglru_scan.train_fwd`` and
+    ``rglru_scan.train_bwd``."""
+    import gc
+    import os
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.core import codegen_cuda
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models import build_model, exact_param_count
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.runtime.compression import int8_compress
+    from repro_torch.runtime.loop import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev)
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"path J {name}: {now - t_phase:.1f} s")
+        t_phase = now
+
+    # ---- J1: the scan's gradient on the card, against autograd through a float64 loop
+    gen.manual_seed(51)
+    a = 0.001 + 0.998 * torch.rand(J_SCAN, generator=gen, device=dev)
+    b, dy = torch.randn(J_SCAN, generator=gen, device=dev), torch.randn(J_SCAN, generator=gen, device=dev)
+    h0 = torch.randn((J_SCAN[0], J_SCAN[2]), generator=gen, device=dev)
+    inputs = [t.clone().requires_grad_() for t in (a, b, h0)]
+    y = rglru_ops.rglru_scan(*inputs)
+    if y.grad_fn is None:
+        raise AssertionError("rglru_scan under grad returned a tensor with no grad_fn")
+    y.backward(dy)
+    ref = [t.double().requires_grad_() for t in (a, b, h0)]
+    h, ys = ref[2], []
+    for t in range(J_SCAN[1]):
+        h = ref[0][:, t] * h + ref[1][:, t]
+        ys.append(h)
+    torch.stack(ys, dim=1).backward(dy.double())
+    del ys, h
+    scan_err, scan_rel = {}, {}
+    for name, got, want in zip(("da", "db", "dh0"), inputs, ref):
+        scan_err[name] = float((got.grad.double() - want.grad).abs().max())
+        scan_rel[name] = scan_err[name] / float(want.grad.abs().max())
+    if not max(scan_rel.values()) <= J_SCAN_REL:
+        raise AssertionError(f"RGLRUScan's gradient at {J_SCAN}: {scan_rel} of the largest float64 gradient "
+                             f"(gate {J_SCAN_REL:g})")
+    zero = [torch.zeros(J_SCAN, device=dev, requires_grad=True), b.clone().requires_grad_(),
+            h0.clone().requires_grad_()]
+    rglru_ops.rglru_scan(*zero).backward(dy)
+    if not (torch.equal(zero[1].grad, dy) and torch.equal(zero[2].grad, torch.zeros_like(h0))):
+        raise AssertionError("RGLRUScan with a == 0: db is not dy or dh0 is not 0")
+    log(f"check RGLRUScan gradient at {J_SCAN} float32 with h0, against autograd through a float64 loop: max abs "
+        f"err {scan_err} = {scan_rel} of the largest (gate {J_SCAN_REL:g}); a == 0 gives db == dy and dh0 == 0 "
+        f"exactly")
+    # its times: the forward launch, and the whole backward (flips, the reversed scan, da, db, dh0)
+    fwd = rglru_ops.prepare(a, b, h0)
+    fwd_ms = cuda_ms(fwd, iters=20)
+    y = fwd()
+    fwd_err = float((y - rglru_scan_ref(a, b, h0)).abs().max())
+    bwd_ms = cuda_ms(lambda: rglru_ops.rglru_scan_backward(a, y, h0, dy), iters=20)
+    rev = rglru_ops.prepare(a, torch.flip(dy, [1]).contiguous())  # the reversed scan alone
+    rev_ms = cuda_ms(rev, iters=20)
+    fwd_plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b, h0), iters=1, warmup=1)
+    # the plain backward: autograd through the plain loop's graph, built once outside the timing
+    plain_in = [t.clone().requires_grad_() for t in (a, b, h0)]
+    plain_y = rglru_scan_ref(*plain_in)
+    bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_y, plain_in, dy, retain_graph=True), iters=1, warmup=1)
+    del plain_in, plain_y
+    n = a.numel()
+    # bytes: forward reads a, b (h0) and writes y; the backward at its least reads dy, a, y (h0) and
+    # writes da, db (dh0); operations: 2 an element forward, 3 backward (g, then da)
+    fwd_bytes, bwd_bytes = 4 * (3 * n + h0.numel()), 4 * (5 * n + 2 * h0.numel())
+    bounds = {}
+    for key, nbytes, flops in (("fwd", fwd_bytes, 2 * n), ("bwd", bwd_bytes, 3 * n)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+        bounds[key] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes)
+    log(f"time rglru_scan.train_fwd {J_SCAN} float32: kernel {fwd_ms:.4f} ms, plain torch {fwd_plain_ms:.4f} ms, "
+        f"bound {bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}: {bounds['fwd'][2] / 1e6:.1f} MB); max_abs_err "
+        f"{fwd_err:.3e} against the plain loop -- {card}")
+    log(f"time rglru_scan.train_bwd {J_SCAN} float32 (torch.flip copies, the reversed scan, da = g·h_prev, db, "
+        f"dh0): {bwd_ms:.4f} ms, of which the reversed scan alone {rev_ms:.4f} ms; plain torch (autograd "
+        f"through the plain loop) {bwd_plain_ms:.4f} ms; bound {bounds['bwd'][0]:.4f} ms "
+        f"({bounds['bwd'][1]}: {bounds['bwd'][2] / 1e6:.1f} MB) -- {card}")
+    del a, b, dy, h0, inputs, ref, zero, y, fwd, rev
+    phase_done("J1 (the scan's gradient and its times)")
+
+    # ---- J2: RecurrentGemma-2B, full width and depth, trained on the card
+    cfg = get_arch(J_ARCH).full
+    if (cfg.attention_impl, cfg.param_dtype, cfg.dtype) != ("chunked", "float32", "bfloat16"):
+        raise AssertionError(f"{J_ARCH}: {cfg.attention_impl}, {cfg.param_dtype}, {cfg.dtype}")
+    n_params = exact_param_count(cfg)
+    if n_params != J_PARAMS:
+        raise AssertionError(f"{J_ARCH}: {n_params} parameters, expected {J_PARAMS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=J_SEQ, global_batch=J_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(s).items()} for s in range(J_STEPS + 1)]
+    step_fn = make_train_step(model, base_lr=J_LR, warmup_steps=J_WARMUP, total_steps=J_STEPS, microbatches=J_MICRO)
+    n_groups, n_tail = divmod(cfg.n_layers, len(cfg.rglru.pattern))
+    grouped = n_groups * sum(k == "rglru" for k in cfg.rglru.pattern)
+    tail = sum(cfg.rglru.pattern[r % len(cfg.rglru.pattern)] == "rglru" for r in range(n_tail))
+    per_mb = 3 * grouped + 2 * tail  # forward, remat recompute and backward; the tail: forward and backward
+    per_step = J_MICRO * per_mb
+    # the kernel's launches by direction: a backward scan is one inside rglru_scan_backward
+    kernel_scan, kernel_backward = rglru_ops._scan, rglru_ops.rglru_scan_backward
+    tally, where = Counter(), ["fwd"]
+
+    def tallied_scan(*args, **kw):
+        tally[where[0]] += 1
+        return kernel_scan(*args, **kw)
+
+    def marked_backward(*args, **kw):
+        where[0] = "bwd"
+        try:
+            return kernel_backward(*args, **kw)
+        finally:
+            where[0] = "fwd"
+
+    def rglru_leaf(path):
+        """Whether ``path`` is one of an RG-LRU layer's leaves that only the scan's gradient reaches."""
+        parts = path.split("/")
+        return "rec" in parts and parts[parts.index("rec") + 1] in J_RGLRU_LEAVES
+
+    def profiled(fn):
+        """fn() under torch.profiler: its result, and the card time, the
+        launches and the costliest kernels of the same run beside its wall
+        (from inside the profiler's span: its start and its trace's
+        processing are left out, its cost per operation is not)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        self_us = [getattr(e, "self_device_time_total", 0) for e in kernels]
+        top = sorted(zip(self_us, kernels), key=lambda t: -t[0])[:5]
+        return out, {"wall_ms": wall_ms, "card_ms": sum(self_us) / 1e3 if kernels else None, "kernels": sum(e.count for e in kernels),
+                     "top": [[e.key[:60], round(us / 1e3, 2)] for us, e in top]}
+
+    walls_s, losses, gnorms, step_launches, prof = [], [], [], [], None
+    rglru_ops._scan, rglru_ops.rglru_scan_backward = tallied_scan, marked_backward
+    try:
+        torch.cuda.synchronize()
+        codegen_cuda.reset_launch_counts()
+        for s in range(J_STEPS):
+            before = rglru_ops.KERNEL.launches
+            t0 = time.perf_counter()
+            if s == J_STEPS - 1:  # the last step under the profiler, out of the median wall
+                (state, metrics), prof = profiled(lambda: step_fn(state, batches[s]))
+            else:
+                state, metrics = step_fn(state, batches[s])
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # synchronizes
+            walls_s.append(time.perf_counter() - t0)
+            step_launches.append(rglru_ops.KERNEL.launches - before)
+            losses.append(loss)
+            gnorms.append(gnorm)
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"{J_ARCH} step {s + 1}: loss {loss}, grad norm {gnorm}")
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in codegen_cuda.launch_counts().items() if n}
+    finally:
+        rglru_ops._scan, rglru_ops.rglru_scan_backward = kernel_scan, kernel_backward
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if step_launches != [per_step] * J_STEPS or launched != {rglru_ops.KERNEL.key: per_step * J_STEPS}:
+        raise AssertionError(f"{J_ARCH}: launches a step {step_launches}, in all {launched}; expected {per_step} "
+                             f"a step ({J_MICRO} microbatches x (3 x {grouped} grouped + 2 x {tail} tail scans))")
+    if dict(tally) != {"fwd": J_STEPS * J_MICRO * (2 * grouped + tail), "bwd": J_STEPS * J_MICRO * (grouped + tail)}:
+        raise AssertionError(f"{J_ARCH}: scans by direction {dict(tally)}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"{J_ARCH}: the loss did not fall: {losses}")
+    bad, silent = [], []
+    for (path, m), (_p, v) in zip(tree_leaves(state.opt.m), tree_leaves(state.opt.v)):
+        if not (torch.isfinite(m).all() and torch.isfinite(v).all()):
+            bad.append(path)
+        if rglru_leaf(path) and not bool(m.any()):
+            silent.append(path)
+    rglru_moments = sum(rglru_leaf(p) for p, _m in tree_leaves(state.opt.m))
+    if bad or silent or rglru_moments != len(J_RGLRU_LEAVES) * (grouped + tail):
+        raise AssertionError(f"{J_ARCH}: moments not finite at {bad[:3]}, zero (no gradient through the scan) at "
+                             f"{silent[:3]}; {rglru_moments} RG-LRU leaves")
+    timed = walls_s[1:-1]  # step 1 warms cuBLAS and the allocator; the last ran under the profiler
+    wall = float(np.median(timed))
+    tokens = J_BATCH * J_SEQ
+    tok_s = tokens / wall
+    mfu = 6 * J_PARAMS * tok_s / PEAK_BF16_FLOPS
+    log(f"path training: {J_ARCH} at full width and depth ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params:,} parameters, float32 master weights and AdamW moments, bf16 compute, "
+        f"attention_impl={cfg.attention_impl}, remat on), {J_STEPS} steps of global batch {J_BATCH} x {J_SEQ} as "
+        f"{J_MICRO} microbatches, lr {J_LR:g}, warmup {J_WARMUP}; init {init_s:.1f} s, state {state_gb:.2f} GB; "
+        f"launches {launched} ({per_step} a step: {dict(tally)} forward and recompute / backward scans)")
+    log(f"training: loss by step {[round(x, 4) for x in losses]}, grad norm {[round(x, 4) for x in gnorms]}; step walls "
+        f"{[round(x, 3) for x in walls_s]} s (host clock, synchronized; the last under the profiler); median of steps "
+        f"2-{J_STEPS - 1} {wall:.3f} s, {tok_s:.1f} tokens/s, {mfu:.4f} of bf16 peak ({PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s) at 6 N FLOPs a token; peak device memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated) -- {card}")
+    # the idle share takes the card time and the wall of one step, the profiled step {J_STEPS}
+    idle = "not measured" if prof["card_ms"] is None else f"{1 - prof['card_ms'] / prof['wall_ms']:.3f}"
+    card_ms = "not measured" if prof["card_ms"] is None else f"{prof['card_ms']:.1f} ms"
+    log(f"breakdown {J_ARCH} train step {J_STEPS}: card time in kernels {card_ms} (torch.profiler) in the same "
+        f"step's {prof['wall_ms']:.1f} ms wall under the profiler (unprofiled median {wall * 1e3:.1f} ms) (device "
+        f"idle share {idle}); {prof['kernels']} kernel launches; costliest {prof['top']} -- {card}")
+    phase_done("J2 (training)")
+
+    # ---- J3: one microbatch's gradients through the kernel against the plain scan's
+    state = state._replace(opt=None)  # the moments are done with: room for two sets of gradients
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = state.params
+    leaves = params.leaves()
+    mb = {k: v[:1] for k, v in batches[J_STEPS].items()}
+
+    def grads_of(m):
+        for _p, x in leaves:
+            x.grad = None
+        codegen_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = m.loss(params, mb)
+        loss.backward()
+        torch.cuda.synchronize()
+        out = (float(loss.detach()), [x.grad for _p, x in leaves], rglru_ops.KERNEL.launches, time.perf_counter() - t0)
+        for _p, x in leaves:
+            x.grad = None
+        return out
+
+    loss_k, g_k, n_k, secs_k = grads_of(model)
+    loss_p, g_p, n_p, secs_p = grads_of(build_model(cfg, rglru_scan_ref))
+    if (n_k, n_p) != (per_mb, 0):
+        raise AssertionError(f"{J_ARCH}: {n_k} launches through the kernel, {n_p} through the plain scan")
+    worst, worst_at, bad, silent = 0.0, None, [], []
+    for (path, _x), gk, gp in zip(leaves, g_k, g_p):
+        if not torch.isfinite(gk).all():
+            bad.append(path)
+        if rglru_leaf(path) and not bool(gk.any()):
+            silent.append(path)
+        rel = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_at = rel, path
+    if bad or silent or not worst <= J_MODEL_REL:
+        raise AssertionError(f"{J_ARCH}: gradients not finite at {bad[:3]}, zero at {silent[:3]}; the kernel's "
+                             f"gradient {worst:.3e} of the plain one's largest at {worst_at} (gate {J_MODEL_REL:g})")
+    log(f"training: one microbatch (1 x {J_SEQ}) of the trained model, loss {loss_k:.6f} through the kernel "
+        f"({n_k} launches, {secs_k:.1f} s) and {loss_p:.6f} through the plain scan ({secs_p:.1f} s); every one of "
+        f"{len(leaves)} leaves' gradients finite, the {len(J_RGLRU_LEAVES) * (grouped + tail)} RG-LRU leaves' "
+        f"non-zero; largest per-leaf difference {worst:.3e} of that leaf's largest gradient, at {worst_at} (gate "
+        f"{J_MODEL_REL:g}) -- {card}")
+    del g_k, g_p, state, params, leaves, model, batches, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("J3 (kernel against plain on the model)")
+
+    # ---- J4: restart, bit for bit, under deterministic algorithms (a child process)
+    outdir = ROOT / ".gt_cache_torch" / "path_j"
+    shutil.rmtree(outdir, ignore_errors=True)
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--path-j-restart", str(outdir)],
+                           capture_output=True, text=True, timeout=600,
+                           env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    if child.returncode != 0:
+        raise AssertionError(f"path J restart child exited {child.returncode}:\n{child.stderr[-3000:]}")
+    restart = json.loads(child.stdout.strip().splitlines()[-1])
+    if sorted(restart) != ["phi3-mini-3.8b", "recurrentgemma-2b"] or not all(
+            r["bit_exact"] and r["device"].startswith("cuda") for r in restart.values()):
+        raise AssertionError(f"path J restart: {restart}")
+    log(f"training restart (child process, torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG="
+        f":4096:8): 8 steps straight against a crash at step 6 and a restart from the step-4 checkpoint, "
+        f"reduced configs on the card: {restart}")
+    shutil.rmtree(outdir, ignore_errors=True)
+    phase_done("J4 (restart)")
+
+    # ---- J5: one train step of every reduced config on the card
+    fams = {}
+    for arch in list_archs():
+        rcfg = get_arch(arch).reduced
+        rmodel = build_model(rcfg)
+        rds = SyntheticLMDataset(vocab=rcfg.vocab, seq_len=16, global_batch=2, seed=0,
+                                 frames_shape=(rcfg.encoder_seq, rcfg.d_model) if rcfg.is_encdec else None,
+                                 patches_shape=(rcfg.encoder_seq, rcfg.d_model) if rcfg.frontend == "vision" else None)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in rds.batch_at(0).items()}
+        rstate = init_train_state(rmodel, torch.Generator().manual_seed(1), device=dev)
+        loss, _ = rmodel.loss(rstate.params, batch)
+        loss.backward()
+        loss = float(loss.detach())
+        for path, x in rstate.params.leaves():
+            if x.grad is None or x.grad.shape != x.shape or not torch.isfinite(x.grad).all():
+                raise AssertionError(f"{arch}: the gradient of {path} is missing, misshapen or not finite")
+        rstate, metrics = make_train_step(rmodel, warmup_steps=1)(rstate, batch)
+        if not (np.isfinite(loss) and np.isfinite(float(metrics["loss"])) and int(rstate.step) == 1):
+            raise AssertionError(f"{arch}: loss {loss}, train step {dict(metrics)}")
+        fams[arch] = round(loss, 4)
+    log(f"training every family: one train step of each reduced config on the card, every leaf's gradient finite "
+        f"and shaped as its leaf; losses {fams}")
+
+    # ---- J6: int8 compression on the card has the CPU's bits
+    gen.manual_seed(61)
+    x = torch.randn((4096, 2560), generator=gen, device=dev)
+    x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=dev) * (x.abs().max() / 127.0)
+    q, scale = int8_compress(x)
+    q_cpu, scale_cpu = int8_compress(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)):
+        raise AssertionError("int8_compress on the card differs from the CPU")
+    log(f"training compression: int8_compress of a (4096, 2560) float32 gradient on the card has the CPU's bits "
+        f"(codes and scale {float(scale):.6e})")
+    phase_done("J5-J6 (every family, compression)")
+
+    rows = []
+    for key, name, ms, plain_ms, launches, err in (
+            ("fwd", "rglru_scan.train_fwd", fwd_ms, fwd_plain_ms, tally["fwd"], fwd_err),
+            ("bwd", "rglru_scan.train_bwd", bwd_ms, bwd_plain_ms, tally["bwd"], max(scan_err.values()))):
+        rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+                     "replaces": "src/repro/kernels/rglru/kernel.py:62", "launches": launches, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                     "library_ms": None, "model": J_ARCH, "shape": list(J_SCAN)})
     return rows
 
 
@@ -2441,6 +2859,10 @@ def main() -> int:
     # bf16 weights alone take 57.8 GB
     report += lm_families(torch.device("cuda"), card, {arch: get_arch(arch).full for arch, _p, _r in H_MODELS})
     walls.mark("path H and its times")
+    # path J trains after path H has freed its tensors
+    torch.cuda.empty_cache()
+    report += path_j(torch.device("cuda"), card)
+    walls.mark("path J")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)
@@ -2450,4 +2872,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path-j-restart"]:  # path J's child process (see path_j_restart)
+        sys.exit(path_j_restart(sys.argv[2]))
     sys.exit(main())

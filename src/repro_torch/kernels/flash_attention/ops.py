@@ -16,7 +16,10 @@ Both read the layout through strides, so there is no transpose and no padding
 to block multiples.  On CPU tensors it runs the plain version
 (``ref.flash_attention_ref``); that is how the CPU tests drive it.  Anything
 else raises, and a CUDA tensor never takes another route than its dtype's
-kernel: a failed build or launch raises.
+kernel: a failed build or launch raises.  Neither kernel has a backward
+(nor has the reference's): on CUDA tensors that want a gradient
+``flash_attention`` raises, and training attends with ``chunked`` or
+``naive``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,10 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
                                    window=window, cap=cap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the flash kernel has no backward, in the reference (its Pallas kernel) or in this "
+            "port, so it cannot run where a gradient is wanted; train with attention_impl='chunked' or 'naive'")
     return prepare(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, cap=cap)()
 
 

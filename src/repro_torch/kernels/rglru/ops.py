@@ -5,6 +5,17 @@ On CUDA tensors ``rglru_scan`` launches the hand-written Hopper kernel
 (``repro/kernels/rglru``); there is no padding, the kernel masks its ragged
 edge.  On CPU tensors it runs the plain version (``ref.rglru_scan_ref``).
 Anything else raises.
+
+The scan is differentiable (:class:`RGLRUScan`).  It is linear, so its
+gradient is the same recurrence run backwards in time,
+
+    g_t = dy_t + a_{t+1}·g_{t+1},   db_t = g_t,   da_t = g_t·h_{t−1},   dh0 = a_0·g_0,
+
+and the backward launches the same kernel (the plain loop on the CPU) on the
+time-reversed cotangent, with the decays shifted by one step and reversed
+(``a'_r = a_{S−r}``; ``a'_0`` meets the zero initial state).  The reversals
+are plain ``torch.flip`` copies.  The reference differentiates its
+associative scan instead; its Pallas kernel has no gradient.
 """
 
 from __future__ import annotations
@@ -29,12 +40,56 @@ KERNEL = HandKernel(
 )
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a (decay), b (input term): (B, S, D); h0: (B, D) or None (zeros).
-    Returns y (B, S, D) in ``a``'s dtype; the state is carried in float32."""
+def _scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """One scan, no gradient: the kernel on CUDA tensors, the plain loop on CPU ones."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     return prepare(a, b, h0)()
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with its gradient: one scan forward, one scan (over reversed
+    time) backward, each a kernel launch on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
+        y = _scan(a, b, h0)  # a fresh tensor each call: autograd may have saved the last one
+        ctx.save_for_backward(a, y, h0)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        a, y, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_backward(a, y, h0, dy)
+        need_a, need_b, need_h0 = ctx.needs_input_grad
+        return da if need_a else None, db if need_b else None, dh0 if need_h0 else None
+
+
+def rglru_scan_backward(a: torch.Tensor, y: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor):
+    """(da, db, dh0) of y = scan(a, b, h0) for the cotangent ``dy``: one scan
+    over reversed time (the kernel on CUDA tensors, the plain loop on CPU
+    ones), the rest elementwise; dh0 is None without h0."""
+    n, s, d = a.shape
+    # the decays of the reversed recurrence: a'_0 = 0 (it meets a zero state), a'_r = a_{S-r}
+    ar = torch.empty_like(a)
+    ar[:, 0] = 0
+    ar[:, 1:] = torch.flip(a[:, 1:], [1])
+    g = torch.flip(_scan(ar, torch.flip(dy.to(a.dtype), [1]), None), [1]).float()
+    h_prev = torch.empty((n, s, d), dtype=torch.float32, device=a.device)
+    if h0 is None:
+        h_prev[:, 0] = 0
+    else:
+        h_prev[:, 0] = h0
+    h_prev[:, 1:] = y[:, :-1]
+    dh0 = None if h0 is None else (a[:, 0].float() * g[:, 0]).to(h0.dtype)
+    return (g * h_prev).to(a.dtype), g.to(a.dtype), dh0
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a (decay), b (input term): (B, S, D); h0: (B, D) or None (zeros).
+    Returns y (B, S, D) in ``a``'s dtype; the state is carried in float32.
+    Differentiable in a, b and h0 (:class:`RGLRUScan`)."""
+    return RGLRUScan.apply(a, b, h0)
 
 
 def prepare(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> Callable[[], torch.Tensor]:

@@ -15,7 +15,7 @@ without a GPU a call that names none raises instead of landing on the host.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -64,6 +64,29 @@ def _convert(tree: Any, device) -> Any:
 def params_from_reference(tree: Dict[str, Any], device="cuda") -> ParamTree:
     """The reference's parameter tree (numpy leaves) as the port's ParamTree."""
     return ParamTree(_convert(tree, device))
+
+
+def _stack(layers: List[Any]) -> Any:
+    if isinstance(layers[0], dict):
+        return {k: _stack([x[k] for x in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def _restack(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _restack(v) for k, v in tree.items()}
+    if isinstance(tree, list):  # a stack of layers: each leaf along a new leading axis
+        return _stack([_restack(x) for x in tree])
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def params_to_reference(tree: Any) -> Dict[str, Any]:
+    """The inverse of ``params_from_reference``: a ParamTree, or a tree like
+    its ``to_tree()`` (AdamW's moments), as the reference's nested dict of
+    numpy arrays, each per-layer list restacked along a leading axis
+    (bfloat16 leaves as float32: numpy has no bfloat16)."""
+    return _restack(tree.to_tree() if isinstance(tree, ParamTree) else tree)
 
 
 def cache_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:

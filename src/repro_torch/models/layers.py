@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +46,8 @@ class ParamTree(nn.Module):
 
     ``tree[key]`` is a parameter or a child ``ParamTree``; a list in the
     source tree (a stack of layers) becomes an ``nn.ModuleList`` of trees.
-    Parameters do not require grad: this slice serves, training is a later one.
+    Parameters do not require grad, as serving wants them;
+    ``trainable_()`` turns that on for training.
     """
 
     def __init__(self, tree: Dict[str, Any]):
@@ -66,18 +67,30 @@ class ParamTree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return key in self._names
 
-    def to_tree(self) -> Dict[str, Any]:
-        """The nested dict (and lists) of tensors this tree holds."""
+    def to_tree(self, data: bool = True) -> Dict[str, Any]:
+        """The nested dict (and lists) of tensors this tree holds: their
+        ``.data``, or the parameters themselves when ``data`` is False."""
         out: Dict[str, Any] = {}
         for k in self._names:
             v = self[k]
             if isinstance(v, nn.ModuleList):
-                out[k] = [x.to_tree() for x in v]
+                out[k] = [x.to_tree(data) for x in v]
             elif isinstance(v, ParamTree):
-                out[k] = v.to_tree()
+                out[k] = v.to_tree(data)
             else:
-                out[k] = v.data
+                out[k] = v.data if data else v
         return out
+
+    def leaves(self) -> List[Tuple[str, nn.Parameter]]:
+        """(path, parameter) of every leaf in tree order (that of ``to_tree``
+        and ``map_tree``), keys and list indices joined with '/'."""
+        return tree_leaves(self.to_tree(data=False))
+
+    def trainable_(self, flag: bool = True) -> "ParamTree":
+        """Make every parameter require grad (or not); returns the tree."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
 
 
 def map_tree(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any:
@@ -88,6 +101,23 @@ def map_tree(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any:
     if isinstance(tree, (list, tuple)):
         return [map_tree(fn, v, f"{path}/{i}") for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+def tree_leaves(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of every leaf of a nested tree of dicts, lists, tuples
+    (a NamedTuple by field name) and ParamTrees, in order; paths join keys,
+    field names and list indices with '/'."""
+    if isinstance(tree, ParamTree):
+        tree = tree.to_tree(data=False)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = dict(zip(tree._fields, tree))
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(path, tree)]
+    return [leaf for k, v in items for leaf in tree_leaves(v, f"{path}/{k}" if path else str(k))]
 
 
 def init_param_tree(specs: Any, generator: Optional[torch.Generator] = None, device="cuda") -> ParamTree:

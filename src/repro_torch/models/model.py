@@ -90,11 +90,21 @@ class LM:
         float32.  Each leaf is drawn in float32 and rounded once, so a
         bfloat16 init equals ``serving_params`` of the float32 one (with
         ``cfg.dtype`` bfloat16) without holding a float32 copy."""
+        return init_param_tree(self._typed_specs(), generator, device)
+
+    def _typed_specs(self) -> Dict[str, Any]:
+        """``param_specs`` in ``cfg.param_dtype``, but for the leaves the layers read in float32."""
         specs = self.param_specs()
         pdt = self.cfg.param_dtype
         if pdt != "float32":
             specs = map_tree(lambda path, sp: sp if _reads_float32(path) else replace(sp, dtype=pdt), specs)
-        return init_param_tree(specs, generator, device)
+        return specs
+
+    def abstract_params(self) -> ParamTree:
+        """The parameters ``init_params`` makes, as meta tensors: shapes and
+        dtypes only, nothing drawn or held (the reference's ``eval_shape``)."""
+        return ParamTree(map_tree(lambda _path, sp: torch.empty(sp.shape, dtype=getattr(torch, sp.dtype),
+                                                                 device="meta"), self._typed_specs()))
 
     def serving_params(self, params: ParamTree) -> ParamTree:
         """The weights cast once to the activation dtype ``cfg.dtype``, for
@@ -143,7 +153,7 @@ class LM:
             logits = torch.where(pad_mask, logits, -1e30)
         return logits
 
-    def encode(self, params, frames) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def encode(self, params, frames, *, remat: bool = False) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Enc-dec: the encoder over ``frames`` (B, S_enc, d_model) and each
         decoder layer's cross K/V (the reference's ``_cross_kv``, a list per
         layer where it stacks them).  Pass it as ``batch["enc_kv"]`` to
@@ -151,27 +161,28 @@ class LM:
         cfg = self.cfg
         _, norm = make_norm(cfg.norm)
         enc = transformer.encoder_stack(params["encoder"], frontends.apply_frontend(params["frontend"], cfg, frames),
-                                        cfg)
+                                        cfg, remat=remat)
         enc = norm(params["enc_norm"], enc)
         return [attn_mod.encoder_kv(lp["xattn"], enc) for lp in params["decoder"]["blocks"]]
 
     # ----------------------------------------------------------------- train
 
-    def forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full-sequence logits. batch: tokens (B, S) [+ frames / patches]."""
+    def forward(self, params, batch, *, remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full-sequence logits. batch: tokens (B, S) [+ frames / patches].
+        ``remat``: recompute each layer (hybrid: each group) in the backward."""
         cfg = self.cfg
         if cfg.is_encdec:
-            enc_kv = self.encode(params, batch["frames"])
+            enc_kv = self.encode(params, batch["frames"], remat=remat)
             x = self._embed_decoder(params, batch["tokens"], 0)
-            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv)
+            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv, remat=remat)
             return self._logits(params, x), {}
         x = self._embed_inputs(params, batch)
-        x, aux = transformer.decoder_stack(params["decoder"], x, cfg, scan=self.rglru_scan)
+        x, aux = transformer.decoder_stack(params["decoder"], x, cfg, remat=remat, scan=self.rglru_scan)
         return self._logits(params, x), aux
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, params, batch, *, remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE (+ MoE aux). batch needs 'labels' (B, S), -1 = masked."""
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, remat=remat)
         labels = batch["labels"].long()
         if self.cfg.frontend == "vision" and "patches" in batch:
             # image positions carry no LM loss
@@ -248,10 +259,11 @@ class LM:
         if cfg.is_encdec:
             enc_kv = batch["enc_kv"] if "enc_kv" in batch else self.encode(params, batch["frames"])
             x = self._embed_decoder(params, batch["tokens"], pos)
-            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv, cache=cache)
+            x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv, cache=cache, remat=False)
         else:
             x = self._embed_inputs(params, batch)
-            x, _ = transformer.decoder_stack(params["decoder"], x, cfg, cache=cache, scan=self.rglru_scan)
+            x, _ = transformer.decoder_stack(params["decoder"], x, cfg, cache=cache, remat=False,
+                                             scan=self.rglru_scan)
         logits = self._logits(params, x[:, -1:, :])[:, 0]
         return logits, {**{k: v for k, v in cache.items() if k != "pos"}, "pos": pos + x.shape[1]}
 

@@ -7,6 +7,14 @@ Caches keep the reference's layout, each layer stack's state stacked along a
 leading axis; layer ``i`` reads and writes its slice ``[i]`` in place.  The
 hybrid (RecurrentGemma) stack repeats (rglru, rglru, attn) groups, then
 runs the remainder as ``tail_*`` layers.
+
+``remat`` (training) recomputes activations in the backward at the
+reference's granularity (``jax.checkpoint`` around each scanned layer): one
+layer of the uniform stacks, one (rglru, rglru, attn) group of the hybrid,
+whose ``tail_*`` layers are not recomputed.  It is
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, applied only
+where a gradient is recorded and no cache is written; serving passes
+``remat=False``.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
@@ -34,6 +43,14 @@ def stack_specs(spec: Any, n: int) -> List[Any]:
     """``n`` layers of ``spec``, one entry per layer (the reference stacks
     them along a new leading axis)."""
     return [spec] * n
+
+
+def _remat(fn, remat: bool, cache=None):
+    """``fn``, recomputed in the backward when ``remat`` and a gradient is
+    being recorded (never around a cache, which a layer writes in place)."""
+    if not (remat and cache is None and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +156,7 @@ def _layer_cache(tree: Dict[str, torch.Tensor], i, pos) -> Dict[str, torch.Tenso
     return c
 
 
-def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, impl=None,
+def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, remat: bool = True, impl=None,
                   scan: rglru_mod.Scan = rglru_ops.rglru_scan) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (x, aux_losses_summed).  ``cache`` is the model's (``LM.make_cache``,
     its 'pos' the tokens already in it), written in place; ``scan`` runs the
@@ -161,16 +178,26 @@ def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, impl=None,
         return dense_block(lp, h, cfg, cache=c, window=cfg.sliding_window, impl=impl)[0]
 
     if cfg.family == "ssm":
+        def ssm_layer(lp, h, c):
+            return ssm_block(lp, h, cfg, cache=c)[0]
+
+        step = _remat(ssm_layer, remat, cache)
         for i, lp in enumerate(params["blocks"]):
-            x, _, _ = ssm_block(lp, x, cfg, cache=layer_cache("layers", i=i))
+            x = step(lp, x, layer_cache("layers", i=i))
         return x, {}
 
     if cfg.family == "hybrid":
         pat = cfg.rglru.pattern
-        for g, gp in enumerate(params["groups"]):
+
+        def group(g, gp, h):
             for i, kind in enumerate(pat):
                 key = f"{i}_{kind}"
-                x = hybrid_layer(kind, gp[key], x, layer_cache("groups", key, i=g))
+                h = hybrid_layer(kind, gp[key], h, layer_cache("groups", key, i=g))
+            return h
+
+        step = _remat(group, remat, cache)
+        for g, gp in enumerate(params["groups"]):
+            x = step(g, gp, x)
         for r in range(cfg.n_layers % len(pat)):
             kind = pat[r % len(pat)]
             key = f"tail_{r}_{kind}"
@@ -178,10 +205,14 @@ def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, impl=None,
         return x, {}
 
     # dense / moe / vlm backbone
+    def dense_layer(lp, h, c):
+        h, _, aux = dense_block(lp, h, cfg, cache=c, window=cfg.sliding_window, impl=impl)
+        return h, aux
+
+    step = _remat(dense_layer, remat, cache)
     auxes: List[Dict[str, torch.Tensor]] = []
     for i, lp in enumerate(params["blocks"]):
-        x, _, aux = dense_block(lp, x, cfg, cache=layer_cache("layers", i=i),
-                                window=cfg.sliding_window, impl=impl)
+        x, aux = step(lp, x, layer_cache("layers", i=i))
         auxes.append(aux)
     if cfg.family != "moe":
         return x, {}
@@ -245,9 +276,10 @@ def encoder_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return {"blocks": stack_specs(encoder_block_spec(cfg), cfg.n_encoder_layers)}
 
 
-def encoder_stack(params, x, cfg: ArchConfig, impl=None):
+def encoder_stack(params, x, cfg: ArchConfig, remat: bool = True, impl=None):
+    step = _remat(lambda lp, h: encoder_block(lp, h, cfg, impl=impl), remat)
     for lp in params["blocks"]:
-        x = encoder_block(lp, x, cfg, impl=impl)
+        x = step(lp, x)
     return x
 
 
@@ -255,9 +287,10 @@ def xdec_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
     return {"blocks": stack_specs(xdec_block_spec(cfg), cfg.n_layers)}
 
 
-def xdec_stack(params, x, cfg: ArchConfig, *, enc_kv, cache=None, impl=None):
+def xdec_stack(params, x, cfg: ArchConfig, *, enc_kv, cache=None, remat: bool = True, impl=None):
     """enc_kv: one (k, v) pair per decoder layer; ``cache`` the model's, written in place."""
+    step = _remat(lambda lp, h, kv, c: xdec_block(lp, h, cfg, enc_kv=kv, cache=c, impl=impl), remat, cache)
     for i, lp in enumerate(params["blocks"]):
         c = None if cache is None else _layer_cache(cache["layers"], i, cache["pos"])
-        x = xdec_block(lp, x, cfg, enc_kv=enc_kv[i], cache=c, impl=impl)
+        x = step(lp, x, enc_kv[i], c)
     return x

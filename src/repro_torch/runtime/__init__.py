@@ -1,7 +1,9 @@
-"""Process supervision and the straggler watchdog of the forecast server
-(``supervise.py``).  The reference's training loop and gradient compression
-(``runtime/loop.py``, ``runtime/compression.py``) are not ported yet."""
+"""Fault-tolerant runtime of the port: train state and step, the restartable
+loop, the straggler watchdog, process supervision and gradient compression
+(the reference's ``repro.runtime``)."""
 
+from .compression import int8_compress, int8_decompress
+from .loop import TrainState, Trainer, make_train_step
 from .supervise import (
     RestartPolicy,
     StragglerWatchdog,
@@ -17,7 +19,12 @@ __all__ = [
     "StragglerWatchdog",
     "Supervisor",
     "SupervisorGaveUp",
+    "TrainState",
+    "Trainer",
     "WatchdogStats",
     "http_ready",
+    "int8_compress",
+    "int8_decompress",
+    "make_train_step",
     "serve_command",
 ]

@@ -270,3 +270,17 @@ def card_cases(rank: int, world: int, inputs: dict, one_card: bool):
     everyone = _everyone({k: out[k] for k in ("program_launches", "all_launches", "exchanges",
                                                "program_equals_eager", "hdiff_launches")})
     return {**out, "ranks": everyone} if rank == 0 else None
+
+
+def compressed_allreduce(rank: int, world: int, grads: np.ndarray, errors: np.ndarray) -> dict:
+    """``tests/test_torch_compression.py``: rank r mean-reduces ``grads[r]``
+    with int8 payloads, once plainly and once with the carried error
+    ``errors[r]`` (error feedback); returns its results and residuals."""
+    from repro_torch.runtime.compression import dp_allreduce_compressed, dp_allreduce_compressed_ef
+
+    g = torch.from_numpy(grads[rank])
+    plain = dp_allreduce_compressed({"g": g, "stack": [g[:3].to(torch.bfloat16)]})
+    reduced, residual = dp_allreduce_compressed_ef({"g": g}, {"g": torch.from_numpy(errors[rank])})
+    return {"mean": plain["g"].numpy(), "bf16": plain["stack"][0].float().numpy(),
+            "bf16_dtype": str(plain["stack"][0].dtype), "ef_mean": reduced["g"].numpy(),
+            "residual": residual["g"].numpy()}
