@@ -120,7 +120,26 @@ Phases, in order; any failure exits non-zero before the result line:
    bit-exact restart of two reduced configs under deterministic algorithms
    (a child process: ``chip_smoke.py --path-j-restart DIR``); one train step
    of every reduced config; ``int8_compress`` on the card against the CPU;
-   the scan's forward and whole backward timed beside their bounds;
+   the scan's forward and whole backward timed beside their bounds; (K), run
+   after path J: the sharded half (``path_k``), four ranks spawned on the one
+   card over gloo with DTensor's collectives staged through host buffers
+   (``launch.ranks.run_ranks(..., backend="gloo_staged")``): K1 serves
+   Moonlight-16B-A3B at full width (bf16 weights drawn from a seed, 12 of 48
+   layers) expert-parallel on a (1, 4) mesh, 16 experts a rank, a 4 x 2048
+   prefill through the bf16 flash kernel on each rank's 512 query rows (12
+   launches a rank, asserted; every call held against ``ref.py``) and 4
+   greedy decode steps on the row-sharded cache, held at ``LM_BF16_REL``
+   against the single-rank run on the same weights with its expert choices
+   replayed; K2 trains RecurrentGemma-2B at full width (3 of 26 layers) on a
+   (2, 2) mesh, 3 steps of 4 x 4096 (float32 master weights, bf16 compute,
+   chunked attention, remat; 36 RG-LRU launches a rank, asserted, the first
+   two scans held to the plain loop's bits), its losses, gradient norms and
+   every moment leaf held against the single-rank steps (a control run that
+   leaves data rank 1's rows out must fail the moment gate), the step wall
+   (max over ranks) and peak memory a rank printed; K3 restores K2's checkpoint
+   on (1, 4) and on one rank, bit for bit; K4 lowers recurrentgemma-2b
+   train_4k on a fake 16 x 16 process group with fake CUDA tensors and
+   prints its GiB a rank, flops and collective bytes;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -137,7 +156,8 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel; after path H, each flash and RG-LRU shape it ran, beside its plain
    version, ``scaled_dot_product_attention`` (KV heads expanded, the window
    as an explicit boolean mask) and its bound; after path I, its group
-   kernels (one-member and member-batched) and hdiff at a rank's tile.
+   kernels (one-member and member-batched) and hdiff at a rank's tile;
+   after path K, the flash and RG-LRU kernels at a rank's shapes there.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -217,6 +237,30 @@ J_SCAN = (1, 4096, 2560)  # one microbatch's RG-LRU scan
 J_SCAN_REL = 1e-5  # (da, db, dh0) against autograd through a float64 loop, of the largest
 J_MODEL_REL = 1e-5  # a leaf's gradient through the kernel against the plain scan's, of its largest
 J_RGLRU_LEAVES = ("w_x", "conv_w", "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate", "lambda_param")
+# path K: the sharded half, four ranks on the one card (gloo through pinned
+# host buffers: ``parallel/staged.py``).  K1: Moonlight-16B-A3B at full width,
+# bf16 weights drawn directly, depth cut to K1_LAYERS, mesh (1, 4): 16 of the
+# 64 experts a rank, prefill of 4 x 2048 (512 query rows a rank through the
+# bf16 flash kernel), K1_STEPS greedy decode steps on the sharded cache.  K2:
+# RecurrentGemma-2B at full width, depth cut to K2_LAYERS (one (rglru, rglru,
+# attn) group), mesh (2, 2): K2_STEPS steps of global batch 4 x 4096 (2 rows
+# a data rank, K2_MICRO microbatches), float32 master weights, bf16 compute,
+# chunked attention, remat.
+K_SEED, K_TIMEOUT = 7, 900
+K1_ARCH, K1_LAYERS, K1_MESH, K1_BATCH, K1_PROMPT, K1_STEPS = "moonshot-v1-16b-a3b", 12, (1, 4), 4, 2048, 4
+K2_ARCH, K2_LAYERS, K2_MESH, K2_BATCH, K2_SEQ, K2_MICRO, K2_STEPS = "recurrentgemma-2b", 3, (2, 2), 4, 4096, 2, 3
+K2_LR, K2_WARMUP = 3e-4, 1
+K2_SCAN_CHECKS = 2  # RG-LRU calls a rank holds to the plain loop's bits (the first forward scans)
+# K2 held against the single-rank steps: the losses and gradient norms (a
+# relative gate: bf16 compute in another order; on the CPU at reduced widths
+# the sharded bf16 losses strayed 6.0e-4 and the gradient norms 1.1e-3), and
+# every moment leaf (m and v: sums of the clipped gradients and of their
+# squares, which AdamW's normalised update has not magnified) by
+# ||sharded - single|| / ||single|| within K2_MOMENT_REL.  On the CPU at
+# reduced width in K2's precision (tests/test_torch_sharded.py) a sound run
+# reads 0.034, and one that drops data rank 1's gradient 1.20; here a control
+# run, which leaves data rank 1's rows out of the loss, must exceed the gate.
+K2_LOSS_REL, K2_MOMENT_REL = 5e-3, 0.2
 
 
 def log(msg: str = "") -> None:
@@ -1148,6 +1192,474 @@ def path_j(dev, card: str) -> list:
                      "replaces": "src/repro/kernels/rglru/kernel.py:62", "launches": launches, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                      "library_ms": None, "model": J_ARCH, "shape": list(J_SCAN)})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# path K: the sharded half, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _k_cfg(which: str):
+    """Path K's configs at full width: K1 Moonlight (bf16 weights drawn
+    directly, the flash kernel), K2 RecurrentGemma-2B (float32 master
+    weights, bf16 compute, chunked attention); depth cut (``K*_LAYERS``)."""
+    from repro_torch.configs import get_arch
+
+    if which == "k1":
+        return dataclasses.replace(get_arch(K1_ARCH).full, n_layers=K1_LAYERS, dtype="bfloat16",
+                                   param_dtype="bfloat16", attention_impl="flash")
+    return dataclasses.replace(get_arch(K2_ARCH).full, n_layers=K2_LAYERS)
+
+
+def _k_prompt(vocab: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(K_SEED)
+    return torch.from_numpy(rng.integers(0, vocab, size=(K1_BATCH, K1_PROMPT), dtype=np.int32))
+
+
+def _k2_batch(ds, step: int, dev):
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(step).items()}
+
+
+def _k2_rglru_launches(cfg) -> int:
+    """RG-LRU launches of one rank's K2 run: each microbatch scans every
+    rglru layer forward and backward, and again in the remat recompute of
+    the (rglru, rglru, attn) groups (the tail layers are not recomputed)."""
+    pat = cfg.rglru.pattern
+    n_groups, rem = divmod(cfg.n_layers, len(pat))
+    in_groups = n_groups * sum(k == "rglru" for k in pat)
+    tails = sum(pat[r % len(pat)] == "rglru" for r in range(rem))
+    return K2_STEPS * K2_MICRO * (2 * (in_groups + tails) + in_groups)
+
+
+def _digests(tree) -> dict:
+    """sha256 of every (whole, plain) leaf's bytes, by its path."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    out = {}
+    for path, t in tree_leaves(tree):
+        host = t.detach().cpu()
+        host = host.view(torch.int16) if host.dtype == torch.bfloat16 else host
+        out[path] = hashlib.sha256(host.numpy().tobytes()).hexdigest()
+    return out
+
+
+def _moment_gap(got, ref) -> tuple:
+    """(the largest over the moment leaves of two ``OptState``s of
+    ||got - ref|| / ||ref||, that leaf's path)."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    worst = (0.0, "")
+    for name in ("m", "v"):
+        for (path, a), (_q, r) in zip(tree_leaves(getattr(got, name)), tree_leaves(getattr(ref, name))):
+            den = float(torch.linalg.vector_norm(r.float()))
+            diff = float(torch.linalg.vector_norm(a.float() - r.float()))
+            worst = max(worst, (diff / den if den > 0 else diff, f"{name}/{path}"))
+    return worst
+
+
+def path_k_rank(rank: int, world: int, outdir: str) -> dict:
+    """Path K on one of the four ranks that share the card (``gloo_staged``):
+    K1 serves Moonlight expert-parallel on (1, 4) (prefill through the bf16
+    flash kernel on the rank's 512 query rows, greedy decode steps on the
+    sharded cache), recording its logits, tokens and expert choices for the
+    parent's single-rank run; K2 trains RecurrentGemma-2B on (2, 2) and saves
+    its state (K3 restores it on (1, 4) here and checks it bit for bit).
+    Every flash call and the first RG-LRU scans are held against their plain
+    versions on the rank's own activations."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
+    from repro_torch.core import codegen_cuda
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import (batch_shardings, cache_shardings, distribute_tree, init_sharded_params,
+                                          init_sharded_state, param_shardings, serve_batch_shardings,
+                                          state_shardings)
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.parallel.sharding import DEFAULT_RULES, axis_rules
+    from repro_torch.runtime.loop import abstract_train_state, make_train_step
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    outdir = Path(outdir)
+    out = {"rank": rank}
+
+    def sync_wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # ---- K1: expert-parallel serving
+    cfg = _k_cfg("k1")
+    model = build_model(cfg)
+    mesh = make_mesh(K1_MESH, ("data", "model"))
+    flash_err, choices = [], []
+    orig_flash, orig_top_k = flash_ops.flash_attention, moe_mod._top_k
+
+    def checked_flash(q, k, v, **kw):
+        o = orig_flash(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+        tol = FLASH_TOL["bfloat16"]
+        if not (torch.isfinite(o).all() and torch.allclose(o.float(), ref.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"rank {rank}: flash on {tuple(q.shape)} off {kw.get('q_offset')} differs from "
+                                 f"the plain version by {float((o.float() - ref.float()).abs().max()):.3e}")
+        flash_err.append(float((o.float() - ref.float()).abs().max()))
+        return o
+
+    def recorded_top_k(probs, k):
+        g, i = orig_top_k(probs, k)
+        choices.append((i.full_tensor() if hasattr(i, "full_tensor") else i).to(torch.int16).cpu())
+        return g, i
+
+    flash_ops.flash_attention, moe_mod._top_k = checked_flash, recorded_top_k
+    try:
+        with axis_rules(DEFAULT_RULES, mesh):
+            params = init_sharded_params(model, param_shardings(model, mesh), torch.Generator().manual_seed(K_SEED),
+                                         dev)
+            out["k1_param_bytes"] = sum(p.to_local().numel() * p.element_size() for _n, p in params.leaves())
+            cache = model.make_cache(K1_BATCH, K1_PROMPT + K1_STEPS + H_SLACK, device=dev)
+            cache = distribute_tree(cache, cache_shardings(mesh, cache))
+            prompt = {"tokens": _k_prompt(cfg.vocab).to(dev)}
+            torch.cuda.synchronize()
+            dist.barrier()
+            codegen_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = model.prefill(params, distribute_tree(prompt, serve_batch_shardings(mesh, prompt)),
+                                              cache)
+                out["k1_prefill_s"] = sync_wall(t0)
+                out["k1_prefill_launches"] = dict(codegen_cuda.launch_counts())
+                outs, toks = [logits.full_tensor().float().cpu()], []
+                codegen_cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(K1_STEPS):
+                    tok = outs[-1].argmax(-1, keepdim=True).to(torch.int32)
+                    toks.append(tok)
+                    b = {"tokens": tok.to(dev)}
+                    logits, cache = model.decode_step(params, distribute_tree(b, serve_batch_shardings(mesh, b)),
+                                                      cache)
+                    outs.append(logits.full_tensor().float().cpu())
+                out["k1_decode_s"] = sync_wall(t0) / K1_STEPS
+                out["k1_decode_launches"] = dict(codegen_cuda.launch_counts())
+        out["k1_flash_calls"], out["k1_flash_err"] = len(flash_err), max(flash_err, default=0.0)
+        out["k1_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            torch.save({"logits": outs, "tokens": toks, "choices": choices}, outdir / "k1.pt")
+    finally:
+        flash_ops.flash_attention, moe_mod._top_k = orig_flash, orig_top_k
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # ---- K2: sharded training; K3: its checkpoint restored on (1, 4)
+    scan_err = []
+
+    def checked_scan(a, b, h0):
+        y = rglru_ops.rglru_scan(a, b, h0)
+        if len(scan_err) < K2_SCAN_CHECKS:  # the kernel gives the plain loop's bits
+            with torch.no_grad():
+                scan_err.append(float((y - rglru_scan_ref(a, b, h0)).abs().max()))
+        return y
+
+    cfg = _k_cfg("k2")
+    model = build_model(cfg, rglru_scan=checked_scan)
+    mesh = make_mesh(K2_MESH, ("data", "model"))
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=K2_SEQ, global_batch=K2_BATCH)
+    with axis_rules(DEFAULT_RULES, mesh):
+        state = init_sharded_state(model, state_shardings(model, mesh), torch.Generator().manual_seed(K_SEED), dev)
+        step_fn = make_train_step(model, base_lr=K2_LR, warmup_steps=K2_WARMUP, total_steps=100,
+                                  microbatches=K2_MICRO)
+        torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, walls = [], [], []
+        codegen_cuda.reset_launch_counts()
+        for step in range(K2_STEPS):
+            b = _k2_batch(ds, step, dev)
+            b = distribute_tree(b, batch_shardings(mesh, b))
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            walls.append(sync_wall(t0))
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+        out["k2_launches"] = dict(codegen_cuda.launch_counts())
+        out["k2_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out.update(k2_losses=losses, k2_gnorms=gnorms, k2_walls=walls, k2_scan_err=scan_err)
+        t0 = time.perf_counter()
+        ckpt = outdir / "k2_ckpt"
+        save_checkpoint(ckpt, K2_STEPS, state, keep=1)
+        out["k3_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh14 = make_mesh((1, 4), ("data", "model"))
+        _s, restored = load_checkpoint(ckpt, abstract_train_state(model), device=dev,
+                                       shardings=state_shardings(model, mesh14))
+        out["k3_restore_s"] = time.perf_counter() - t0
+        out["k3_mesh14_placements"] = sorted({str(tuple(t.placements)) for _p, t in tree_leaves(restored)})
+        # each leaf whole on both meshes, compared on the card; rank 0 takes
+        # the saved state's digests for the parent's one-rank restore
+        from torch.distributed.tensor import distribute_tensor
+
+        same, digests = True, {}
+        for (path, a), (_q, b) in zip(tree_leaves(restored), tree_leaves(state)):
+            whole = a.detach().full_tensor()  # the (1, 4) restore, whole; cut as the (2, 2) state is
+            mine = distribute_tensor(whole, b.device_mesh, b.placements, src_data_rank=None).to_local()
+            same = same and torch.equal(mine, b.detach().to_local())
+            if rank == 0:
+                digests.update(_digests({path: whole}))
+        out["k3_mesh14_bits"], out["k3_digests"] = same, digests if rank == 0 else None
+    return out
+
+
+def path_k(card: str) -> list:
+    """Path K (after path J): the sharded half on four ranks spawned on the
+    one card over ``gloo_staged`` (``path_k_rank``), each phase's single-rank
+    run here after the ranks exit.  K1: Moonlight's prefill and greedy
+    decode on (1, 4) held at ``LM_BF16_REL`` against the single-rank run on
+    the same weights, its expert choices replayed and its tokens forced,
+    the flash launches per rank asserted; K2: RecurrentGemma-2B trained 3
+    steps on (2, 2), its RG-LRU launches per rank asserted, its losses and
+    gradient norms held at ``K2_LOSS_REL`` and every moment leaf at
+    ``K2_MOMENT_REL`` against the single-rank steps (a control that leaves
+    data rank 1's rows out must fail that gate), the step wall (max over
+    ranks) and peak memory per rank; K3: the K2 checkpoint restored on
+    (1, 4) and on one rank, bit for bit; K4: ``lower_cell`` of
+    recurrentgemma-2b train_4k on the fake 16 x 16 mesh with fake CUDA
+    tensors.  Returns the kernels' report rows of the ranks' shapes."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.store import load_checkpoint
+    from repro_torch.core import codegen_cuda
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.loop import abstract_train_state, init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    outdir = ROOT / ".gt_cache_torch" / "path_k"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    for kern in (flash_ops.KERNEL_BF16, rglru_ops.KERNEL):  # built here (phase 2 has, in a whole run): the ranks load
+        kern.start_build()
+    for kern in (flash_ops.KERNEL_BF16, rglru_ops.KERNEL):
+        kern.finish_build()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # the ranks' allocators
+    ranks = run_ranks(path_k_rank, 4, (str(outdir),), store_dir=outdir, backend="gloo_staged", timeout=K_TIMEOUT)
+    r0 = ranks[0]
+    log(f"path K ranks (spawn to exit): {time.perf_counter() - t_phase:.1f} s -- {card}")
+
+    # ---- K1 against the single-rank run on the same weights
+    cfg = _k_cfg("k1")
+    want_flash = K1_LAYERS
+    for r in ranks:
+        got = r["k1_prefill_launches"].get("flash_fwd_sm90", 0)
+        others = {k: v for k, v in r["k1_prefill_launches"].items() if k != "flash_fwd_sm90" and v}
+        if got != want_flash or others or any(r["k1_decode_launches"].values()):
+            raise AssertionError(f"K1 rank {r['rank']}: prefill launches {r['k1_prefill_launches']} (want "
+                                 f"{want_flash} of flash_fwd_sm90 only), decode {r['k1_decode_launches']} (want none)")
+        if r["k1_flash_calls"] != want_flash:
+            raise AssertionError(f"K1 rank {r['rank']}: {r['k1_flash_calls']} flash calls held, want {want_flash}")
+    rec = torch.load(outdir / "k1.pt")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(K_SEED), device=dev)
+    replay = iter(rec["choices"])
+    orig_top_k = moe_mod._top_k
+
+    def replayed(probs, k):
+        idx = next(replay).to(device=probs.device, dtype=torch.int64)
+        return torch.gather(probs, -1, idx), idx
+
+    moe_mod._top_k = replayed
+    try:
+        with torch.no_grad():
+            cache = model.make_cache(K1_BATCH, K1_PROMPT + K1_STEPS + H_SLACK, device=dev)
+            codegen_cuda.reset_launch_counts()
+            logits, cache = model.prefill(params, {"tokens": _k_prompt(cfg.vocab).to(dev)}, cache)
+            single = [logits.float().cpu()]
+            for tok in rec["tokens"]:
+                logits, cache = model.decode_step(params, {"tokens": tok.to(dev)}, cache)
+                single.append(logits.float().cpu())
+        if next(replay, None) is not None:
+            raise AssertionError("K1: the single-rank run made fewer MoE calls than the ranks")
+    finally:
+        moe_mod._top_k = orig_top_k
+    rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(rec["logits"], single)]
+    log(f"K1 {K1_ARCH} {K1_LAYERS} layers bf16 on {K1_MESH}: logits against the single-rank run, max |diff| / max "
+        f"|logit| per call (prefill, {K1_STEPS} decode steps) {[f'{x:.3e}' for x in rels]} (gate {LM_BF16_REL}); "
+        f"prefill {max(r['k1_prefill_s'] for r in ranks):.3f} s, decode {max(r['k1_decode_s'] for r in ranks):.3f} "
+        f"s a step (max over ranks); flash {want_flash} launches a rank, max |kernel - plain| "
+        f"{max(r['k1_flash_err'] for r in ranks):.3e}; weights {r0['k1_param_bytes'] / 1e9:.2f} GB a rank, peak "
+        f"{max(r['k1_peak_gb'] for r in ranks):.2f} GB -- {card}")
+    if not max(rels) <= LM_BF16_REL:
+        raise AssertionError(f"K1: the sharded logits stray {max(rels):.3e} of the largest from the single rank's")
+    del params, cache, logits, single, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_k1 = time.perf_counter()
+
+    # ---- K2 against the single-rank steps; K3 on one rank
+    cfg = _k_cfg("k2")
+    want_scans = _k2_rglru_launches(cfg)
+    for r in ranks:
+        got = r["k2_launches"].get("rglru_scan", 0)
+        if got != want_scans or any(v for k, v in r["k2_launches"].items() if k != "rglru_scan"):
+            raise AssertionError(f"K2 rank {r['rank']}: launches {r['k2_launches']}, want {want_scans} rglru_scan")
+        if any(e != 0 for e in r["k2_scan_err"]) or len(r["k2_scan_err"]) != K2_SCAN_CHECKS:
+            raise AssertionError(f"K2 rank {r['rank']}: RG-LRU kernel against the plain loop {r['k2_scan_err']}")
+        if not r["k3_mesh14_bits"]:
+            raise AssertionError(f"K3 rank {r['rank']}: the (1, 4) restore differs from the saved state")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(K_SEED), device=dev)
+    step_fn = make_train_step(model, base_lr=K2_LR, warmup_steps=K2_WARMUP, total_steps=100, microbatches=K2_MICRO)
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=K2_SEQ, global_batch=K2_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls = [], [], []
+    for step in range(K2_STEPS):
+        b = _k2_batch(ds, step, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["k2_losses"], losses))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["k2_gnorms"], gnorms))
+    _s, restored = load_checkpoint(outdir / "k2_ckpt", abstract_train_state(model), device=dev)
+    alone = _digests(restored) == r0["k3_digests"]
+    gap, gap_leaf = _moment_gap(restored.opt, state.opt)
+    single_opt = state.opt
+    del state, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the control: the same steps with data rank 1's rows (1 and 3: the second
+    # of each microbatch) left out of the loss, as if that rank's gradient were lost
+    ctrl = init_train_state(model, torch.Generator().manual_seed(K_SEED), device=dev)
+    for step in range(K2_STEPS):
+        b = _k2_batch(ds, step, dev)
+        b["labels"][1::2] = -1
+        ctrl, _m = step_fn(ctrl, b)
+    ctrl_gap, ctrl_leaf = _moment_gap(ctrl.opt, single_opt)
+    step_walls = [max(r["k2_walls"][i] for r in ranks) for i in range(K2_STEPS)]
+    log(f"K2 {K2_ARCH} {K2_LAYERS} layers on {K2_MESH}, {K2_STEPS} steps of {K2_BATCH} x {K2_SEQ} ({K2_MICRO} "
+        f"microbatches): losses {[f'{x:.6f}' for x in r0['k2_losses']]} (single rank {[f'{x:.6f}' for x in losses]}, "
+        f"max rel {loss_rel:.3e}, gate {K2_LOSS_REL}); grad norms {[f'{x:.4f}' for x in r0['k2_gnorms']]} (single "
+        f"rank {[f'{x:.4f}' for x in gnorms]}, max rel {gnorm_rel:.3e}); moments max ||sharded - single|| / "
+        f"||single|| {gap:.4e} at {gap_leaf} (gate {K2_MOMENT_REL}; the control, data rank 1's rows left out, "
+        f"{ctrl_gap:.4e} at {ctrl_leaf}); step wall {[f'{x:.3f}' for x in step_walls]} s (max over "
+        f"ranks; single rank {[f'{x:.3f}' for x in walls]} s); peak memory a rank "
+        f"{[round(r['k2_peak_gb'], 2) for r in ranks]} GB (single rank {single_peak:.2f} GB); {want_scans} RG-LRU "
+        f"launches a rank, {K2_SCAN_CHECKS} held to the plain loop's bits -- {card}")
+    log(f"K3: the K2 checkpoint (saved on {K2_MESH} in {r0['k3_save_s']:.1f} s) restored on (1, 4) in "
+        f"{r0['k3_restore_s']:.1f} s: bit for bit {all(r['k3_mesh14_bits'] for r in ranks)}, placements "
+        f"{r0['k3_mesh14_placements'][:3]}...; on one rank: bit for bit {alone}")
+    if not (loss_rel <= K2_LOSS_REL and gnorm_rel <= K2_LOSS_REL and gap <= K2_MOMENT_REL):
+        raise AssertionError(f"K2: losses {loss_rel:.3e}, grad norms {gnorm_rel:.3e} (gate {K2_LOSS_REL}), moments "
+                             f"{gap:.3e} at {gap_leaf} (gate {K2_MOMENT_REL}) from the single-rank steps")
+    if not ctrl_gap > K2_MOMENT_REL:
+        raise AssertionError(f"K2: the control (data rank 1's rows left out) passes the moment gate: {ctrl_gap:.3e}")
+    if not alone:
+        raise AssertionError("K3: the checkpoint restored on one rank differs from the ranks' state")
+    del ctrl, single_opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_k2 = time.perf_counter()
+
+    # ---- K4: one dry-run cell on the fake 16 x 16 mesh, fake CUDA tensors
+    rep = lower_cell("recurrentgemma-2b", "train_4k", False, device="cuda")
+    mem = rep["memory"]
+    log(f"K4 dry run recurrentgemma-2b train_4k on 16 x 16 (fake CUDA tensors): "
+        f"{mem['total_per_device_bytes'] / 2**30:.2f} GiB a rank (arguments {mem['argument_bytes'] / 2**30:.2f}, "
+        f"temporaries {mem['temp_bytes'] / 2**30:.2f}), {rep['cost']['flops']:.4e} flops a rank, collectives "
+        f"{ {k: f'{v['bytes']:.4e} B in {v['count']}' for k, v in rep['collectives'].items()} }, link bytes "
+        f"{rep['collective_link_bytes']:.4e} ({rep['lower_compile_s']} s)")
+
+    # ---- the ranks' kernel shapes, timed here beside their plain versions, SDPA and their bounds
+    rows = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    hd, h = 128, 16
+    rows_a_rank = K1_PROMPT // K1_MESH[1]
+    off = K1_PROMPT - rows_a_rank  # the last rank's rows: the most keys
+    q = torch.randn((K1_BATCH, rows_a_rank, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((K1_BATCH, K1_PROMPT, h, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    launch = flash_ops.prepare(q, k, v, causal=True, q_offset=off)
+    ms = cuda_ms(launch, iters=10)
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    err = float((launch().float() - ref.float()).abs().max())
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, q_offset=off), iters=1, warmup=1)
+    qpos = off + torch.arange(rows_a_rank, device=dev)[:, None]
+    mask = torch.arange(K1_PROMPT, device=dev)[None, :] <= qpos
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters=10)
+    flops = 4 * hd * int(mask.sum()) * K1_BATCH * h
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    n = sum(r["k1_prefill_launches"].get("flash_fwd_sm90", 0) for r in ranks)
+    log(f"time flash_attention.{K1_ARCH}.k1_rank_rows q {tuple(q.shape)} kv {tuple(k.shape)} q_offset {off}: kernel "
+        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"max_abs_err {err:.3e}; launches on path K {n} ({want_flash} a rank) -- {card}")
+    rows.append({"name": f"flash_attention.{K1_ARCH}.k1_rank_rows", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:153", "launches": n, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                 "model": K1_ARCH, "model_dtype": "bfloat16", "path": "K"})
+    del q, k, v, qt, kt, vt, mask, ref, launch
+    shape = (K2_BATCH // K2_MESH[0] // K2_MICRO, K2_SEQ, cfg.rglru.d_rnn // K2_MESH[1])
+    a = 0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)
+    b, h0 = (torch.randn(s, generator=gen, device=dev) for s in (shape, (shape[0], shape[2])))
+    launch = rglru_ops.prepare(a, b, None)
+    ms = cuda_ms(launch, iters=20)
+    err = float((launch() - rglru_scan_ref(a, b, None)).abs().max())
+    plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b, None), iters=1, warmup=1)
+    nbytes, flops = 4 * 3 * a.numel(), 2 * a.numel()
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    n = sum(r["k2_launches"].get("rglru_scan", 0) for r in ranks)
+    log(f"time rglru_scan.{K2_ARCH}.k2_rank_channels {shape} float32: kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms, no single PyTorch call, bound {bound_ms:.4f} ms ({bound_by}); max_abs_err {err:.3e}; "
+        f"launches on path K {n} ({want_scans} a rank) -- {card}")
+    if err != 0:
+        raise AssertionError(f"rglru_scan at {shape}: the kernel differs from the plain loop by {err:.3e}")
+    rows.append({"name": f"rglru_scan.{K2_ARCH}.k2_rank_channels", "route": "cuda",
+                 "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+                 "replaces": "src/repro/kernels/rglru/kernel.py:62", "launches": n, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                 "model": K2_ARCH, "model_dtype": "bfloat16", "path": "K"})
+    del a, b, h0, launch
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    log(f"path K wall: ranks and K1 {t_k1 - t_phase:.1f} s, K2 and K3 {t_k2 - t_k1:.1f} s, K4 and times "
+        f"{now - t_k2:.1f} s")
     return rows
 
 
@@ -2863,6 +3375,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report += path_j(torch.device("cuda"), card)
     walls.mark("path J")
+    # path K: four ranks on the card, after path J has freed its tensors
+    torch.cuda.empty_cache()
+    report += path_k(card)
+    walls.mark("path K")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -20,6 +20,13 @@ dict keys, NamedTuple fields, list indices and a ``ParamTree``'s
 ``named_parameters`` joined with '/'), so a plain dict tree gets the
 reference's paths.  bfloat16 leaves are stored as their 16-bit patterns
 (numpy has no bfloat16) with ``"bfloat16"`` in the manifest.
+
+A tree of DTensors (a sharded train state, one process per rank) is saved
+by every rank together: each leaf is gathered whole (a collective), rank 0
+writes the same format, and the ranks meet at a barrier once it is
+committed.  ``load_checkpoint(..., shardings=)`` places the restored leaves
+by a tree of ``NamedSharding``s, on any mesh, whatever mesh wrote them: the
+elastic restore.
 """
 
 from __future__ import annotations
@@ -47,10 +54,12 @@ _COMMIT = "COMMIT"
 
 
 def _compress(data: bytes) -> Tuple[bytes, str]:
-    """Returns (payload, codec name)."""
+    """Returns (payload, codec name).  Without zstandard, one zlib stream of
+    stored blocks (level 0): float weights hardly deflate (about 0.93 at
+    level 1), and deflating gigabytes would take minutes."""
     if zstandard is not None:
         return zstandard.ZstdCompressor(level=3).compress(data), "zst"
-    return zlib.compress(data, level=6), "zlib"
+    return zlib.compress(data, 0), "zlib"
 
 
 def _decompress(payload: bytes, codec: str, src: Path) -> bytes:
@@ -66,9 +75,18 @@ def _decompress(payload: bytes, codec: str, src: Path) -> bytes:
     raise ValueError(f"checkpoint {src} uses unknown codec {codec!r}")
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
-    """(a host array that owns its memory, the manifest dtype)."""
+    """(a host array that owns its memory, the manifest dtype); a DTensor is
+    gathered whole first (every rank must call)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -84,6 +102,13 @@ def _snapshot(tree: Any) -> List[Tuple[str, np.ndarray, str]]:
     return [(path, *_to_numpy(leaf)) for path, leaf in tree_leaves(tree)]
 
 
+def _gather_only(tree: Any) -> None:
+    """A rank that does not write takes part in each leaf's gather."""
+    for _path, leaf in tree_leaves(tree):
+        if _is_dtensor(leaf):
+            leaf.full_tensor()
+
+
 def _write(directory: Path, step: int, leaves: List[Tuple[str, np.ndarray, str]], keep: int) -> Path:
     target = directory / f"step_{step:09d}"
     tmp = directory / f".tmp_step_{step:09d}"
@@ -97,7 +122,8 @@ def _write(directory: Path, step: int, leaves: List[Tuple[str, np.ndarray, str]]
         manifest.append({"path": path, "key": key, "shape": list(arr.shape), "dtype": dtype})
     raw = io.BytesIO()
     np.savez(raw, **arrays)
-    payload, codec = _compress(raw.getvalue())
+    payload, codec = _compress(raw.getbuffer())
+    del raw
     (tmp / f"shard_00000.npz.{codec}").write_bytes(payload)
     meta = {"step": step, "format": 1, "codec": codec, "leaves": manifest, "written_at": time.time()}
     (tmp / "meta.json").write_text(json.dumps(meta))
@@ -109,9 +135,32 @@ def _write(directory: Path, step: int, leaves: List[Tuple[str, np.ndarray, str]]
     return target
 
 
+def _sharded(tree: Any) -> bool:
+    """Whether ``tree`` holds DTensors (every rank then saves it together)."""
+    return any(_is_dtensor(leaf) for _p, leaf in tree_leaves(tree))
+
+
+def _writes(sharded: bool) -> bool:
+    """Whether this process writes: always alone, rank 0 of a sharded tree."""
+    import torch.distributed as dist
+
+    return not sharded or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str | Path, step: int, tree: Any, *, keep: int = 3) -> Path:
-    """Synchronous save with atomic COMMIT; keeps the newest ``keep``."""
-    return _write(Path(directory), step, _snapshot(tree), keep)
+    """Synchronous save with atomic COMMIT; keeps the newest ``keep``.  A
+    sharded tree: every rank calls, rank 0 writes, all return once committed."""
+    sharded = _sharded(tree)
+    target = Path(directory) / f"step_{step:09d}"
+    if _writes(sharded):
+        target = _write(Path(directory), step, _snapshot(tree), keep)
+    else:
+        _gather_only(tree)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
+    return target
 
 
 def _gc_old(directory: Path, keep: int) -> None:
@@ -157,10 +206,27 @@ def _rebuild(template: Any, path: str, load: Callable[[str, Any], torch.Tensor])
 
 
 def load_checkpoint(directory: str | Path, template: Any, step: Optional[int] = None,
-                    device="cuda") -> Tuple[int, Any]:
+                    device="cuda", shardings: Any = None) -> Tuple[int, Any]:
     """Restore into the structure of ``template`` (its leaves' dtypes kept,
     their values ignored: meta tensors serve), as tensors on ``device``.
-    A ``ParamTree`` comes back as one, trainable if the template's was."""
+    A ``ParamTree`` comes back as one, trainable if the template's was.
+    ``shardings``: a tree like ``template`` of ``NamedSharding``s; each
+    rank then keeps its shard of every leaf, as a DTensor.  Ranks load one
+    at a time (a barrier between): each holds the whole checkpoint in host
+    memory while it places its shards, and ranks often share a host."""
+    import torch.distributed as dist
+
+    if shardings is None or not dist.is_initialized() or dist.get_world_size() == 1:
+        return _load(directory, template, step, device, shardings)
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            out = _load(directory, template, step, device, shardings)
+        dist.barrier()
+    return out
+
+
+def _load(directory, template: Any, step: Optional[int], device, shardings: Any) -> Tuple[int, Any]:
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -179,11 +245,19 @@ def load_checkpoint(directory: str | Path, template: Any, step: Optional[int] = 
     if missing:
         raise KeyError(f"checkpoint {src} is missing leaves: {missing[:5]}... ({len(missing)} total)")
 
+    placed = dict(tree_leaves(shardings)) if shardings is not None else {}
+
     def load(path: str, leaf: Any) -> torch.Tensor:
         key, stored = by_path[path]
         arr = arrays[key]
         want = leaf.dtype if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(arr)).dtype
-        return _from_numpy(arr, stored, want, device)
+        t = _from_numpy(arr, stored, want, device)
+        if path not in placed:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+
+        sh = placed[path]
+        return distribute_tensor(t, sh.mesh, sh.placements(), src_data_rank=None)
 
     return meta["step"], _rebuild(template, "", load)
 
@@ -198,9 +272,14 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False  # a sharded save in flight: wait() meets the other ranks
 
     def save_async(self, step: int, tree: Any) -> None:
         self.wait()
+        self._sharded = _sharded(tree)
+        if not _writes(self._sharded):
+            _gather_only(tree)
+            return
         leaves = _snapshot(tree)
 
         def _work():
@@ -216,12 +295,18 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:  # the other ranks wait for rank 0's commit
+            import torch.distributed as dist
+
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
-    def restore_or_init(self, template: Any, init_fn: Callable[[], Any], device="cuda") -> Tuple[int, Any]:
+    def restore_or_init(self, template: Any, init_fn: Callable[[], Any], device="cuda",
+                        shardings: Any = None) -> Tuple[int, Any]:
         step = latest_step(self.directory)
         if step is None:
             return 0, init_fn()
-        return load_checkpoint(self.directory, template, step, device)
+        return load_checkpoint(self.directory, template, step, device, shardings)

@@ -25,6 +25,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels._build import HandKernel
 
@@ -41,7 +42,10 @@ KERNEL = HandKernel(
 
 
 def _scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
-    """One scan, no gradient: the kernel on CUDA tensors, the plain loop on CPU ones."""
+    """One scan, no gradient: the kernel on CUDA tensors, the plain loop on CPU
+    ones; fake tensors (a dry run) get the output's shape only."""
+    if is_fake(a):
+        return torch.empty_like(a)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     return prepare(a, b, h0)()

@@ -40,6 +40,11 @@ def _rank_main(fn, rank: int, world_size: int, args, store: str, backend: str, t
     import torch.distributed as dist
 
     torch.set_num_threads(1)  # ranks share the host's cores
+    if backend == "gloo_staged":  # gloo, DTensor's collectives staged through host buffers
+        from repro_torch.parallel import staged
+
+        staged.install()
+        backend = "gloo"
     try:
         dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world_size,
                                 timeout=timedelta(seconds=timeout))
@@ -56,7 +61,9 @@ def _rank_main(fn, rank: int, world_size: int, args, store: str, backend: str, t
 def run_ranks(fn: Callable, world_size: int, args: Sequence[Any] = (), *, store_dir, backend: str = "gloo",
               timeout: float = 120.0) -> List[Any]:
     """``[fn(rank, world_size, *args) for each rank]``, each in its own
-    process of one ``backend`` process group, with one CPU thread.
+    process of one ``backend`` process group, with one CPU thread;
+    ``"gloo_staged"`` is gloo with ``parallel.staged.install()`` (ranks that
+    share one card).
     ``store_dir`` holds the ``file://`` rendezvous (a fresh file per run)."""
     store_dir = Path(store_dir)
     store_dir.mkdir(parents=True, exist_ok=True)

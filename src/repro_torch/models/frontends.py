@@ -13,6 +13,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel.sharding import matmul
 
 from .layers import ParamSpec, sinusoidal_positions
 
@@ -27,7 +28,7 @@ def frontend_spec(cfg: ArchConfig) -> Dict[str, Any]:
 def apply_frontend(params, cfg: ArchConfig, feats: torch.Tensor) -> torch.Tensor:
     """feats: (B, S_enc, d_model) precomputed embeddings → backbone inputs."""
     dt = getattr(torch, cfg.dtype)
-    x = feats.to(dt) @ params["adapter"]["kernel"].to(dt)
+    x = matmul(feats.to(dt), params["adapter"]["kernel"].to(dt))
     if cfg.frontend == "audio":
         pos = torch.from_numpy(sinusoidal_positions(feats.shape[1], cfg.d_model)).to(x.device, dt)
         x = x + pos[None]

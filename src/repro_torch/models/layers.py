@@ -18,11 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import matmul, with_logical_constraint
+
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    logical: Tuple[Optional[str], ...]  # sharding axes, kept from the reference for a later slice
+    logical: Tuple[Optional[str], ...]  # logical sharding axes (parallel.sharding)
     dtype: str = "float32"
     init: str = "normal"  # normal | zeros | ones
     scale: Optional[float] = None  # default: 1/sqrt(fan_in)
@@ -126,13 +128,14 @@ def init_param_tree(specs: Any, generator: Optional[torch.Generator] = None, dev
     a leaf's values do not depend on the other leaves or on the process."""
     device = torch.device(device)
     base = 0 if generator is None else generator.initial_seed()
+    return ParamTree(map_tree(lambda path, spec: init_leaf(path, spec, base, device), specs))
 
-    def init(path: str, spec: ParamSpec) -> torch.Tensor:
-        g = torch.Generator(device=device)
-        g.manual_seed((base * 0x9E3779B97F4A7C15 + zlib.crc32(path.encode())) % (1 << 63))
-        return spec.initializer(g, device)
 
-    return ParamTree(map_tree(init, specs))
+def init_leaf(path: str, spec: ParamSpec, base_seed: int, device) -> torch.Tensor:
+    """The leaf at ``path`` of ``init_param_tree`` with a generator seeded ``base_seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed((base_seed * 0x9E3779B97F4A7C15 + zlib.crc32(path.encode())) % (1 << 63))
+    return spec.initializer(g, device)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +197,7 @@ def dense_spec(d_in: int, d_out: int, logical: Tuple[Optional[str], Optional[str
 def dense(params, x):
     # mixed precision: fp32 master weights cast to the activation dtype (a
     # no-op on weights already cast once for serving, LM.serving_params)
-    y = x @ params["kernel"].to(x.dtype)
+    y = matmul(x, params["kernel"].to(x.dtype))
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
@@ -206,12 +209,13 @@ def embedding_spec(vocab: int, d: int) -> Dict[str, ParamSpec]:
 
 def embed(params, tokens, dtype):
     # gather, then cast: the same values as the reference's cast-then-gather
-    return params["embedding"][tokens.long()].to(dtype)
+    # (an embedding lookup, which a vocab-sharded DTensor table also serves)
+    return F.embedding(tokens.long(), params["embedding"]).to(dtype)
 
 
 def unembed(params, x):
     """Logits head (optionally tied to the embedding)."""
-    return x @ params["embedding"].to(x.dtype).T
+    return matmul(x, params["embedding"].to(x.dtype).T)
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +250,7 @@ def mlp(params, x, activation: str):
         h = _act(act, dense(params["wg"], x)) * dense(params["wi"], x)
     else:
         h = _act("gelu" if activation == "gelu" else "silu", dense(params["wi"], x))
+    h = with_logical_constraint(h, ("batch",) + (None,) * (h.dim() - 2) + ("mlp",))
     return dense(params["wo"], h)
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.parallel.sharding import is_dtensor, matmul, spmd_scope, with_logical_constraint
 
 from . import attention as attn_mod
 from . import frontends, transformer
@@ -127,8 +128,9 @@ class LM:
         x = embed(params["embed"], batch["tokens"], getattr(torch, cfg.dtype))
         if cfg.frontend == "vision" and "patches" in batch:
             pe = frontends.apply_frontend(params["frontend"], cfg, batch["patches"])
-            x = torch.cat([pe, x], dim=1)
-        return x
+            # a lookup in a vocab-sharded table is summed before the concatenation
+            x = torch.cat([pe, with_logical_constraint(x, ("batch", None, "embed"))], dim=1)
+        return with_logical_constraint(x, ("batch", "attn_seq", "embed"))
 
     def _embed_decoder(self, params, tokens, pos) -> torch.Tensor:
         """The enc-dec decoder's inputs: token embeddings plus the learned
@@ -138,20 +140,27 @@ class LM:
         posids = pos + torch.arange(x.shape[1], device=x.device)
         return x + params["dec_pos_embed"][posids].to(dt)[None]
 
-    def _logits(self, params, x) -> torch.Tensor:
+    def _logits(self, params, x, constrain: bool = True) -> torch.Tensor:
+        """The logits of ``x``; under a mesh sequence-sharded, as the
+        reference constrains them, unless ``constrain`` is False (the loss
+        takes them sharded on the vocab, as the product leaves them)."""
         cfg = self.cfg
         _, norm = make_norm(cfg.norm)
-        x = norm(params["final_norm"], x)
+        # the whole sequence of the batch's rows, against the vocab-sharded
+        # head: the logits leave the product sharded on the vocab (DTensor
+        # would otherwise pick a layout that replicates them on the batch)
+        x = with_logical_constraint(norm(params["final_norm"], x), ("batch", None, "embed"))
         if cfg.tie_embeddings:
             logits = unembed(params["embed"], x)
         else:
-            logits = x @ params["lm_head"]["kernel"].to(x.dtype)
-        logits = softcap(logits.float(), cfg.logit_softcap)
+            logits = matmul(x, params["lm_head"]["kernel"].to(x.dtype))
+        # in float32 (float64 for float64 activations, as the norms)
+        logits = softcap(logits.to(torch.promote_types(logits.dtype, torch.float32)), cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab:
             # exact semantics: padded vocab rows never receive probability
             pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
             logits = torch.where(pad_mask, logits, -1e30)
-        return logits
+        return with_logical_constraint(logits, ("batch", "attn_seq", "vocab")) if constrain else logits
 
     def encode(self, params, frames, *, remat: bool = False) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Enc-dec: the encoder over ``frames`` (B, S_enc, d_model) and each
@@ -170,28 +179,34 @@ class LM:
     def forward(self, params, batch, *, remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full-sequence logits. batch: tokens (B, S) [+ frames / patches].
         ``remat``: recompute each layer (hybrid: each group) in the backward."""
+        with spmd_scope():
+            return self._forward(params, batch, remat)
+
+    def _forward(self, params, batch, remat: bool, constrain: bool = True):
         cfg = self.cfg
         if cfg.is_encdec:
             enc_kv = self.encode(params, batch["frames"], remat=remat)
             x = self._embed_decoder(params, batch["tokens"], 0)
             x = transformer.xdec_stack(params["decoder"], x, cfg, enc_kv=enc_kv, remat=remat)
-            return self._logits(params, x), {}
+            return self._logits(params, x, constrain), {}
         x = self._embed_inputs(params, batch)
         x, aux = transformer.decoder_stack(params["decoder"], x, cfg, remat=remat, scan=self.rglru_scan)
-        return self._logits(params, x), aux
+        return self._logits(params, x, constrain), aux
 
     def loss(self, params, batch, *, remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE (+ MoE aux). batch needs 'labels' (B, S), -1 = masked."""
-        logits, aux = self.forward(params, batch, remat=remat)
+        with spmd_scope():
+            return self._loss(params, batch, remat)
+
+    def _loss(self, params, batch, remat: bool):
+        logits, aux = self._forward(params, batch, remat, constrain=False)
         labels = batch["labels"].long()
         if self.cfg.frontend == "vision" and "patches" in batch:
             # image positions carry no LM loss
             pads = torch.full(batch["patches"].shape[:2], -1, dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pads, labels], dim=1)
         mask = (labels >= 0).float()
-        safe = torch.clamp_min(labels, 0)
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = _token_nll(logits, torch.clamp_min(labels, 0))
         ce = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
         total = ce
         metrics = {"ce_loss": ce, "tokens": torch.sum(mask)}
@@ -254,6 +269,10 @@ class LM:
         return self._serve(params, batch, cache)
 
     def _serve(self, params, batch, cache):
+        with spmd_scope():
+            return self._serve_in_scope(params, batch, cache)
+
+    def _serve_in_scope(self, params, batch, cache):
         cfg = self.cfg
         pos = cache["pos"]
         if cfg.is_encdec:
@@ -266,6 +285,65 @@ class LM:
                                              scan=self.rglru_scan)
         logits = self._logits(params, x[:, -1:, :])[:, 0]
         return logits, {**{k: v for k, v in cache.items() if k != "pos"}, "pos": pos + x.shape[1]}
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over logits whose vocab is split across
+    ``group`` (this rank's columns ``v0 ..``): the softmax's max and sum and
+    the label's logit are all-reduced per token; the gradient is local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, group):
+        from repro_torch.parallel.staged import all_reduce
+
+        vl = logits.shape[-1]
+        m = all_reduce(logits.detach().amax(-1), "max", group)
+        e = torch.exp(logits - m[..., None])
+        s = all_reduce(e.sum(-1), "sum", group)
+        local = labels - v0
+        mine = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        t = all_reduce(torch.where(mine, torch.gather(logits, -1, idx[..., None])[..., 0], 0), "sum", group)
+        ctx.save_for_backward(e, s, idx, mine)
+        return torch.log(s) + m - t
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, idx, mine = ctx.saved_tensors
+        grad = e * (g / s)[..., None]
+        grad.scatter_add_(-1, idx[..., None], -(g * mine)[..., None].to(grad.dtype))
+        return grad, None, None, None
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] of every token.  On DTensors it runs in a
+    ``local_map`` on the rank's own tokens: vocab-parallel
+    (``_VocabParallelNLL``) where the vocab is sharded, so that the logits are
+    never gathered, else over whole vocab rows (DTensor's own gradient of the
+    gather would build it on the full batch)."""
+    def nll(lg, lb):
+        return -torch.gather(F.log_softmax(lg, dim=-1), -1, lb[..., None])[..., 0]
+
+    if not is_dtensor(logits):
+        return nll(logits, labels)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab_dims = [i for i, p in enumerate(logits.placements) if p == Shard(last)]
+    tok = [p if p in (Shard(0), Shard(1)) else Replicate() for p in logits.placements]
+    if len(vocab_dims) != 1:
+        fn = local_map(nll, out_placements=tok, in_placements=(tok, tok), device_mesh=mesh, redistribute_inputs=True)
+        return fn(logits, labels)
+    vd = vocab_dims[0]
+    lg_pl = list(tok)
+    lg_pl[vd] = Shard(last)
+
+    def body(lg, lb):
+        return _VocabParallelNLL.apply(lg, lb, mesh.get_local_rank(vd) * lg.shape[-1], mesh.get_group(vd))
+
+    fn = local_map(body, out_placements=tok, in_placements=(lg_pl, tok), device_mesh=mesh, redistribute_inputs=True)
+    return fn(logits, labels)
 
 
 def build_model(cfg: ArchConfig, rglru_scan: Scan = rglru_ops.rglru_scan) -> LM:

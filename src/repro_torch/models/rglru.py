@@ -8,6 +8,10 @@ token) is ``rglru_step``, with no launch.  The reference folds the state with
 an associative scan; the kernel is sequential, so float32 results agree to
 the rounding of a different summation order (about 1e-5 of the largest
 output).
+
+Under a mesh the channels are sharded over 'model' (``("batch", "seq",
+"mlp")``), and the scan, being per channel, runs in a ``local_map`` on each
+rank's (B, S, D/m) slice, its gradient through the same ``scan``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.parallel.sharding import is_dtensor, logical_sharding, matmul, with_logical_constraint
 
 from .layers import ParamSpec, causal_conv
 
@@ -59,8 +64,28 @@ def rglru(params, x: torch.Tensor, *, h0: Optional[torch.Tensor] = None,
           scan: Scan = rglru_ops.rglru_scan) -> Tuple[torch.Tensor, torch.Tensor]:
     """Core RG-LRU over (B, S, Dr). Returns (y, final h), in ``x``'s dtype."""
     a, gated = _gates(params, x.float())
-    y = scan(a.contiguous(), gated.contiguous(), None if h0 is None else h0.float())
+    y = _scan_sharded(scan, a.contiguous(), gated.contiguous(), None if h0 is None else h0.float())
     return y.to(x.dtype), y[:, -1].to(x.dtype)
+
+
+def _scan_sharded(scan: Scan, a, b, h0):
+    """``scan`` on plain tensors, or in a ``local_map`` over the rank's
+    batch rows and channels of DTensors (the time axis whole)."""
+    if not is_dtensor(a):
+        return scan(a, b, h0)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = a.device_mesh
+    pl = logical_sharding(("batch", "seq", "mlp"), mesh, a.shape).placements()
+    if h0 is None:
+        fn = local_map(lambda al, bl: scan(al, bl, None), out_placements=list(pl), in_placements=(pl, pl),
+                       device_mesh=mesh, redistribute_inputs=True)
+        return fn(a, b)
+    h_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+    fn = local_map(scan, out_placements=list(pl), in_placements=(pl, pl, h_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(a, b, h0)
 
 
 def rglru_step(params, x: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,17 +104,18 @@ def rglru_block(params, x: torch.Tensor, cfg: RGLRUConfig, *, cache: Optional[Di
     into these tensors in place and the returned cache holds them.  A prompt
     (S > 1) runs the recurrence through ``scan``; one token through
     ``rglru_step``."""
-    gate = F.gelu(x @ params["w_gate"]["kernel"].to(x.dtype), approximate="tanh")
-    xr = x @ params["w_x"]["kernel"].to(x.dtype)
+    gate = F.gelu(matmul(x, params["w_gate"]["kernel"].to(x.dtype)), approximate="tanh")
+    xr = matmul(x, params["w_x"]["kernel"].to(x.dtype))
     tail = cache["conv"] if cache is not None else None
     xr, new_tail = causal_conv(xr, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), tail)
+    xr = with_logical_constraint(xr, ("batch", "seq", "mlp"))
     h0 = cache["h"] if cache is not None else None
     if h0 is not None and xr.shape[1] == 1:
         y, h_last = rglru_step(params, xr[:, 0], h0)
         y = y[:, None]
     else:
         y, h_last = rglru(params, xr, h0=h0, scan=scan)
-    out = (y * gate) @ params["w_out"]["kernel"].to(x.dtype)
+    out = matmul(y * gate, params["w_out"]["kernel"].to(x.dtype))
     if cache is None:
         return out, None
     cache["conv"].copy_(new_tail)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.parallel.sharding import matmul, with_logical_constraint
 
 from .layers import ParamSpec, causal_conv
 
@@ -113,7 +114,7 @@ def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
     gn = cfg.n_groups * cfg.d_state
     d_xbc = di + 2 * gn
 
-    proj = x @ params["w_in"]["kernel"].to(x.dtype)  # (B, S, di + d_xbc + nh)
+    proj = matmul(x, params["w_in"]["kernel"].to(x.dtype))  # (B, S, di + d_xbc + nh)
     z, xbc, dt_raw = torch.split(proj, [di, d_xbc, nh], dim=-1)
 
     conv_tail = cache["conv"] if cache is not None else None
@@ -121,6 +122,7 @@ def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
     xbc = F.silu(xbc)
     xs, B, C = torch.split(xbc, [di, gn, gn], dim=-1)
     xs = xs.reshape(b, s, nh, cfg.head_dim)
+    xs = with_logical_constraint(xs, ("batch", "seq", "ssm_heads", None))
     B = B.reshape(b, s, cfg.n_groups, cfg.d_state)
     C = C.reshape(b, s, cfg.n_groups, cfg.d_state)
     # the SSD and its gated norm in float32, as the reference casts, or in
@@ -138,7 +140,7 @@ def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
     y32 = y.to(ct) * F.silu(z.to(ct))
     var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
     y32 = y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"].to(ct)
-    out = y32.to(x.dtype) @ params["w_out"]["kernel"].to(x.dtype)
+    out = matmul(y32.to(x.dtype), params["w_out"]["kernel"].to(x.dtype))
     if cache is None:
         return out, None
     cache["conv"].copy_(new_tail)

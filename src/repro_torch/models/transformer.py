@@ -31,6 +31,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from repro_torch.parallel.sharding import axis_rules, current_mesh, current_rules, spmd_scope, with_logical_constraint
+
 from .layers import make_norm, mlp, mlp_spec
 
 
@@ -50,7 +52,15 @@ def _remat(fn, remat: bool, cache=None):
     being recorded (never around a cache, which a layer writes in place)."""
     if not (remat and cache is None and torch.is_grad_enabled()):
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    rules, mesh = current_rules(), current_mesh()
+
+    def scoped(*args):
+        # the recompute runs in the backward, maybe on autograd's own thread:
+        # under the forward's rules and mesh
+        with axis_rules(rules, mesh), spmd_scope():
+            return fn(*args)
+
+    return lambda *args: checkpoint(scoped, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -84,16 +94,24 @@ def dense_block(params, x, cfg: ArchConfig, *, cache=None, window=None, impl=Non
     _, norm = make_norm(cfg.norm)
     impl = impl or cfg.attention_impl
     h = norm(params["ln1"], x)
+    if not cfg.parallel_block:
+        # the sequence sharding pinned on the norm output
+        h = with_logical_constraint(h, ("batch", "attn_seq", "embed"))
     attn_out, new_cache = attn_mod.self_attention(
         params["attn"], h, n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
         impl=impl, window=window, chunk=cfg.attention_chunk, cache=cache,
     )
     if cfg.parallel_block:
         ff_out, aux = _ffn(params, h, cfg)
-        return x + attn_out + ff_out, new_cache, aux
-    x = x + attn_out
-    ff_out, aux = _ffn(params, norm(params["ln2"], x), cfg)
-    return x + ff_out, new_cache, aux
+        x = x + attn_out + ff_out
+    else:
+        attn_out = with_logical_constraint(attn_out, ("batch", "attn_seq", "embed"))
+        x = x + attn_out
+        h2 = with_logical_constraint(norm(params["ln2"], x), ("batch", "attn_seq", "embed"))
+        ff_out, aux = _ffn(params, h2, cfg)
+        x = x + with_logical_constraint(ff_out, ("batch", "attn_seq", "embed"))
+    # sequence-parallel residual stream: sequence-sharded over the model axis
+    return with_logical_constraint(x, ("batch", "attn_seq", "embed")), new_cache, aux
 
 
 def ssm_block_spec(cfg: ArchConfig) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """AdamW with decoupled weight decay and float32 moments.
 
-The moments ``m`` and ``v`` are trees of float32 tensors shaped like the
+The moments ``m`` and ``v`` are trees of float32 tensors (float64 for float64
+parameters, whose update is then float64 throughout) shaped like the
 parameters (the nested dicts and per-layer lists of
 ``ParamTree.to_tree()``).  ``adamw_update`` writes the parameters and the
 moments in place under ``torch.no_grad()``: at RecurrentGemma-2B's width the
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import map_tree, tree_leaves
+from repro_torch.optim.schedule import host_step
 
 
 class OptState(NamedTuple):
@@ -40,12 +42,17 @@ def decays(path: str, leaf: torch.Tensor) -> bool:
     return leaf.dim() + sum(part.isdigit() for part in path.split("/")) >= 2
 
 
+def moment_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The moments' dtype for parameters of ``dtype``: float32, or float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def adamw_init(params: Any) -> OptState:
     """Zero moments for a ParamTree or a tree of tensors, on its device."""
     tree = params.to_tree() if hasattr(params, "to_tree") else params
 
     def zeros(_path, p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=moment_dtype(p.dtype), requires_grad=False)
 
     device = tree_leaves(tree)[0][1].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device), m=map_tree(zeros, tree),
@@ -67,7 +74,7 @@ def adamw_update(
     """Returns (params, new_state); ``params`` (a ParamTree or a tree of
     tensors) and the moments are updated in place.  ``grads`` is a tree in the
     params' leaf order; ``lr`` a float or a 0-d tensor."""
-    step = int(state.step) + 1
+    step = host_step(state.step) + 1
     # the bias corrections in float32, as the reference's traced scalars
     c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
     c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
@@ -81,16 +88,16 @@ def adamw_update(
                          f"{len(flat_m)} and {len(flat_v)} moments")
     with torch.no_grad():
         for (path, p), g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-            g32 = g.float()
+            g32 = g.to(m.dtype)
             if grad_scale is not None:
                 g32 = g32 * grad_scale
             m.mul_(b1).add_(g32, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
             delta = torch.div(m, c1).div_(torch.div(v, c2).sqrt_().add_(eps))
             if decays(path, p):
-                delta.add_(p.float(), alpha=weight_decay)
-            if p.dtype == torch.float32:
+                delta.add_(p.to(delta.dtype), alpha=weight_decay)
+            if p.dtype == delta.dtype:
                 p.sub_(delta.mul_(lr))
             else:
-                p.copy_((p.float() - delta.mul_(lr)).to(p.dtype))
+                p.copy_((p.to(delta.dtype) - delta.mul_(lr)).to(p.dtype))
     return params, OptState(step=state.step + 1, m=state.m, v=state.v)

@@ -1,9 +1,9 @@
-"""Distribution substrate of the port: the halo exchange of distributed
-stencils over ``torch.distributed`` (``halo``).
+"""Distribution substrate of the port: logical-axis sharding rules over
+DTensor (``sharding``) and the halo exchange of distributed stencils over
+``torch.distributed`` (``halo``).
 
-The reference package's ``repro.parallel``; its logical-axis sharding rules
-(``sharding.py``) and gradient compression belong to the training path and
-are not ported yet.
+The reference package's ``repro.parallel``; gradient compression is
+``repro_torch.runtime.compression``.
 """
 
 from .halo import (
@@ -15,13 +15,27 @@ from .halo import (
     reset_message_counts,
     shard_blocks,
 )
+from .sharding import (
+    LogicalAxisRules,
+    axis_rules,
+    current_rules,
+    logical_sharding,
+    logical_spec,
+    with_logical_constraint,
+)
 
 __all__ = [
     "HaloExchange",
+    "LogicalAxisRules",
+    "axis_rules",
+    "current_rules",
     "exchange_halo_2d",
     "gather_blocks",
+    "logical_sharding",
+    "logical_spec",
     "message_counts",
     "request_exchange",
     "reset_message_counts",
     "shard_blocks",
+    "with_logical_constraint",
 ]

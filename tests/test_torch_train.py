@@ -14,6 +14,7 @@ and checkpoints bit for bit.
 import dataclasses
 import inspect
 import json
+import zlib
 
 import pytest
 
@@ -198,6 +199,28 @@ def test_checkpoint_reads_across_packages(tmp_path, writer):
         step, restored = load_checkpoint(tmp_path, _meta(tree), device="cpu")
         _assert_trees_equal(tree, restored)
     assert step == 3
+
+
+def test_checkpoint_without_zstandard_is_one_zlib_stream(tmp_path, monkeypatch):
+    """Without zstandard the port writes one zlib stream of stored blocks
+    (level 0), with nothing beyond the reference's keys in ``meta.json``;
+    both packages read it back bit for bit."""
+    from repro_torch.checkpoint import store
+
+    monkeypatch.setattr(store, "zstandard", None)
+    tree = _tree()
+    save_checkpoint(tmp_path, 5, tree)
+    src = tmp_path / "step_000000005"
+    meta = json.loads((src / "meta.json").read_text())
+    assert meta["codec"] == "zlib" and set(meta) == {"step", "format", "codec", "leaves", "written_at"}
+    payload = (src / "shard_00000.npz.zlib").read_bytes()
+    assert payload[:2] == b"\x78\x01" and len(payload) > len(zlib.decompress(payload))  # stored, not deflated
+    _step, restored = load_checkpoint(tmp_path, _meta(tree), device="cpu")
+    _assert_trees_equal(tree, restored)
+    r_tree = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
+    _step, r_restored = r_load_checkpoint(tmp_path, jax.eval_shape(lambda: r_tree))
+    jax.tree_util.tree_map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), np.asarray(b)),
+                           r_tree, r_restored)
 
 
 def test_checkpoint_atomicity_ignores_uncommitted(tmp_path):
