@@ -139,7 +139,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (max over ranks) and peak memory a rank printed; K3 restores K2's checkpoint
    on (1, 4) and on one rank, bit for bit; K4 lowers recurrentgemma-2b
    train_4k on a fake 16 x 16 process group with fake CUDA tensors and
-   prints its GiB a rank, flops and collective bytes;
+   prints its GiB a rank, flops and collective bytes, and the paper's
+   distributed-hdiff stencil cell on both production meshes, whose interior
+   rank's halo messages, link bytes and argument bytes must equal the
+   reference's (``K4_STENCIL``); (L) the port's four examples
+   (``examples/*_torch.py``) through their ``main(argv)``: quickstart's four
+   backends, the climate model at 256 x 256 x 80 for 10 steps as a program
+   (2 launches a step) and eager (5) within 1e-10 of each other, its
+   21-member ensemble (one launch per group and step, the control member bit
+   for bit against the one-member run), the serving example (each response
+   bit for bit against its request run alone) and the ~100M LM trained 60
+   steps at full width (the loss falls; tokens/s, peak memory);
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -261,6 +271,11 @@ K2_SCAN_CHECKS = 2  # RG-LRU calls a rank holds to the plain loop's bits (the fi
 # reads 0.034, and one that drops data rank 1's gradient 1.20; here a control
 # run, which leaves data rank 1's rows out of the loss, must exceed the gate.
 K2_LOSS_REL, K2_MOMENT_REL = 5e-3, 0.2
+# K4's stencil cells (the paper's distributed hdiff at 8192 x 8192 x 64 and
+# 16384 x 8192 x 64 float64 on the 16 x 16 and 2 x 16 x 16 meshes): an
+# interior rank's collective-permutes, their bytes and its argument bytes,
+# the reference's XLA figures (``python -m repro.launch.dryrun --stencil``)
+K4_STENCIL = {False: (8, 6_328_320, 268_435_464), True: (8, 9_474_048, 536_870_920)}
 
 
 def log(msg: str = "") -> None:
@@ -1455,7 +1470,7 @@ def path_k(card: str) -> list:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
-    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.dryrun import lower_cell, lower_stencil_cell
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import build_model
     from repro_torch.models import moe as moe_mod
@@ -1601,6 +1616,18 @@ def path_k(card: str) -> list:
         f"temporaries {mem['temp_bytes'] / 2**30:.2f}), {rep['cost']['flops']:.4e} flops a rank, collectives "
         f"{ {k: f'{v['bytes']:.4e} B in {v['count']}' for k, v in rep['collectives'].items()} }, link bytes "
         f"{rep['collective_link_bytes']:.4e} ({rep['lower_compile_s']} s)")
+    # the paper's stencil cell on both production meshes: an interior rank's
+    # halo messages, recorded (not posted) on the fake group
+    for multi_pod, (n_msg, link, arg) in K4_STENCIL.items():
+        rep = lower_stencil_cell(multi_pod, device="cuda")
+        got = (rep["collectives"]["collective-permute"]["count"], int(rep["collective_link_bytes"]),
+               rep["memory"]["argument_bytes"])
+        log(f"K4 dry run {rep['arch']} {rep['shape']} on {rep['mesh']} (rank {rep['rank']}, fake CUDA tensors): "
+            f"{got[0]} collective-permutes, {got[1]} link bytes, {got[2]} argument bytes (the reference's "
+            f"{n_msg}, {link}, {arg}); {rep['memory']['total_per_device_bytes'] / 2**30:.2f} GiB a rank "
+            f"({rep['lower_compile_s']} s)")
+        if got != (n_msg, link, arg):
+            raise AssertionError(f"K4 stencil cell on {rep['mesh']}: {got}, the reference's {(n_msg, link, arg)}")
 
     # ---- the ranks' kernel shapes, timed here beside their plain versions, SDPA and their bounds
     rows = []
@@ -1663,6 +1690,201 @@ def path_k(card: str) -> list:
     return rows
 
 
+# path L: the port's examples (examples/*_torch.py) through their main(argv),
+# the entry points the README starts a user from
+L_CLIMATE = ["--nx", str(DOMAIN[0]), "--ny", str(DOMAIN[1]), "--nz", str(DOMAIN[2]), "--nt", str(NSTEPS)]
+L_TRAIN_STEPS = 60
+L_TRAIN = ["--steps", str(L_TRAIN_STEPS), "--batch", "8", "--seq", "256"]  # the 100M config at full width
+L_WALL_AIM = 90.0  # seconds
+
+
+def example(name: str):
+    """The port's example ``examples/<name>_torch.py``, loaded once."""
+    import importlib.util
+
+    mod = _EXAMPLES.get(name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _EXAMPLES[name] = mod
+    return mod
+
+
+_EXAMPLES: dict = {}
+
+
+def path_l_kernels() -> dict:
+    """The generated kernels path L launches, by the report row that carries
+    their launches, compiled as the examples compile them, on storages of
+    meta tensors: quickstart's ``smooth``; the climate step's five stencils,
+    its program's two group kernels at DOMAIN, their member-batched kernels
+    and the statistics at MEMBERS; the serving example's forecast groups at
+    its domain, one-member and member-batched at the engine's block."""
+    import torch
+
+    from repro_torch.core import gtscript, storage
+    from repro_torch.ensemble import Ensemble
+    from repro_torch.stencils import climate, forecast
+
+    def meta(shape, halo, members=None):
+        if members is None:
+            return storage.Storage(torch.empty(shape, dtype=torch.float64, device="meta"), "cuda", (halo, halo, 0))
+        return storage.Storage(torch.empty((members,) + shape, dtype=torch.float64, device="meta"), "cuda",
+                               (0, halo, halo, 0), ("N", "I", "J", "K"))
+
+    def group_names(cp):
+        return ["+".join(n.replace("_defs", "") for n in g) for g in cp.report["group_stencils"]]
+
+    full = (DOMAIN[0] + 2 * H, DOMAIN[1] + 2 * H, DOMAIN[2])
+    stencils = climate.build_stencils("cuda")
+    prog = climate.build_program("cuda", DOMAIN, stencils=stencils)
+    scalars = dict(climate.DEFAULT_SCALARS)
+    cp = prog.compiled({n: meta(full, H) for n in climate.FIELD_NAMES}, scalars)
+    ens = Ensemble(prog, MEMBERS)
+    runs = ens.compiled({n: meta(full, H, None if n in ("u", "v", "w") else MEMBERS) for n in climate.FIELD_NAMES},
+                        scalars).batched_runs({})
+    out = {"quickstart.smooth": [gtscript.stencil(backend="cuda")(example("quickstart").smooth_defs).kernel]}
+    out.update({f"climate.{n}": [st.kernel] for n, st in stencils.items()})
+    for gi, g in enumerate(group_names(cp)):
+        out[f"climate_program.{g}"] = [cp.group_kernels[gi]]
+        out[f"climate_ensemble.{g}"] = [runs[gi].kernel]
+    out["ensemble_stats"] = [ens.statistics().stencil.kernel]
+    dom = example("serve_forecast").DOM
+    shape = (dom[0] + 2 * forecast.HALO, dom[1] + 2 * forecast.HALO, dom[2])
+    fcp = forecast.build_forecast_step("cuda", dom).compiled(
+        {n: meta(shape, forecast.HALO) for n in forecast.FIELD_NAMES}, dict(forecast.DEFAULT_SCALARS))
+    for gi, g in enumerate(group_names(fcp)):
+        out[f"serving.forecast_step.{g}"] = [fcp.group_kernels[gi], fcp.group_objects[gi].block_kernel(None, ())]
+    return out
+
+
+def path_l(card: str, report=None) -> list:
+    """Path L (after path K): the port's four examples in process through
+    their ``main(argv)``, on the card, every launch count zeroed just before
+    each and read just after.  L1 ``quickstart_torch``: four backends agree
+    (1e-12), one launch of ``smooth``.  L2 ``climate_model_torch --compare``
+    at DOMAIN for NSTEPS steps: the program's phi within 1e-10 of the eager
+    phi, 2 launches a step as a program and 5 eager.  L3 ``--members
+    MEMBERS``: one launch per group and step for all members and one of the
+    statistics; the control member bit for bit against L2's one-member
+    program run.  L4 ``serve_forecast_torch`` at its defaults (each response
+    bit for bit against its request run alone, which the example asserts).
+    L5 ``train_lm_torch`` (the ~100M config at full width, ``L_TRAIN``): the
+    loss falls; tokens/s and peak memory.  Its checkpoints go to a temporary
+    directory removed at the end.  ``report``'s rows (the whole script's)
+    gain ``launches_path_l``; the ``quickstart.smooth`` row takes its
+    ``launches`` from here.  Alone: ``chip_smoke.path_l(card)`` builds the
+    kernels first.  Returns no new row."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import codegen_cuda
+
+    t_phase = time.perf_counter()
+    kernels = path_l_kernels()
+    for ks in kernels.values():
+        for k in ks:
+            k.start_build()
+    for ks in kernels.values():
+        for k in ks:
+            k.finish_build()
+    t_build = time.perf_counter()
+    launched = {row: 0 for row in kernels}
+    walls = {}
+
+    def run(phase, name, argv):
+        torch.cuda.synchronize()
+        codegen_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = example(name).main(argv)
+        torch.cuda.synchronize()
+        walls[phase] = time.perf_counter() - t0
+        counts = codegen_cuda.launch_counts()
+        got = {row: sum(counts.get(k.key, 0) for k in ks) for row, ks in kernels.items()}
+        for row, n in got.items():
+            launched[row] += n
+        return out, {row: n for row, n in got.items() if n}
+
+    # L1: quickstart
+    out, got = run("L1", "quickstart", [])
+    if got != {"quickstart.smooth": 1}:
+        raise AssertionError(f"L1 quickstart: launches {got}, expected one of smooth")
+    log(f"path L1 quickstart_torch: backends {sorted(out['results'])} agree within 1e-12 on {out['device']}; "
+        f"cuda run {out['run_ms']['cuda']:.3f} ms (host clock); launches {got} -- {card}")
+
+    # L2: the climate model, program and eager, at full width
+    out, got = run("L2", "climate_model", L_CLIMATE + ["--compare"])
+    per_step = {d: out[d]["launches_per_step"] for d in ("program", "eager")}
+    if per_step != {"program": 2, "eager": 5}:
+        raise AssertionError(f"L2 climate_model: launches a step {per_step}, expected 2 as a program and 5 eager")
+    if not out["max_deviation"] <= 1e-10:
+        raise AssertionError(f"L2 climate_model: program and eager phi differ by {out['max_deviation']:.3e}")
+    want = {row: NSTEPS for row in kernels if row.startswith(("climate.", "climate_program."))}
+    if got != want:
+        raise AssertionError(f"L2 climate_model: launches {got}, expected {want}")
+    control = out["program"]["phi"]
+    log(f"path L2 climate_model_torch {' '.join(L_CLIMATE)} --compare: program {out['program']['wall_s']:.4f} s, "
+        f"eager {out['eager']['wall_s']:.4f} s for {NSTEPS} steps (host clock, synchronized), launches a step "
+        f"{per_step}; max |program - eager| {out['max_deviation']:.3e} (gate 1e-10) -- {card}")
+
+    # L3: the ensemble, member 0 the control
+    out, got = run("L3", "climate_model", L_CLIMATE + ["--members", str(MEMBERS)])
+    want = {row: NSTEPS for row in kernels if row.startswith("climate_ensemble.")}
+    want["ensemble_stats"] = 1
+    if got != want:
+        raise AssertionError(f"L3 climate_model --members {MEMBERS}: launches {got}, expected {want}")
+    if not np.array_equal(out["ensemble"]["phi"][0], control):
+        err = float(np.abs(out["ensemble"]["phi"][0] - control).max())
+        raise AssertionError(f"L3: the control member differs from the one-member program run by {err:.3e}")
+    log(f"path L3 climate_model_torch --members {MEMBERS} --nt {NSTEPS}: {out['ensemble']['wall_s']:.4f} s "
+        f"(host clock, synchronized), launches {got}; the control member equals L2's program run bit for bit "
+        f"-- {card}")
+    del out, control
+
+    # L4: forecast serving
+    out, got = run("L4", "serve_forecast", [])
+    if not got or any(not row.startswith("serving.forecast_step.") for row in got):
+        raise AssertionError(f"L4 serve_forecast: launches {got}")
+    s = out["summary"]
+    log(f"path L4 serve_forecast_torch: {s['requests']} requests, each bit for bit its run alone; "
+        f"{s['requests_per_second']:.1f} requests/s, p50 {s['p50_ms']:.1f} ms, p99 {s['p99_ms']:.1f} ms "
+        f"(host clock), launches {got} -- {card}")
+
+    # L5: training the ~100M model
+    with tempfile.TemporaryDirectory(prefix="path_l_") as tmp:
+        out, got = run("L5", "train_lm", L_TRAIN + ["--ckpt-dir", f"{tmp}/ckpt", "--metrics-out",
+                                                    f"{tmp}/metrics.json"])
+    losses = out["losses"]
+    if got or len(losses) != L_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"L5 train_lm: launches {got}, {len(losses)} losses")
+    win = max(1, L_TRAIN_STEPS // 6)
+    first, last = float(np.mean(losses[:win])), float(np.mean(losses[-win:]))
+    if not last < first:
+        raise AssertionError(f"L5 train_lm: the loss did not fall ({first:.4f} over the first {win} steps, "
+                             f"{last:.4f} over the last {win})")
+    log(f"path L5 train_lm_torch {' '.join(L_TRAIN)}: {out['exact_params']} parameters ({out['active_params']} "
+        f"active), loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first {win} steps {first:.4f}, of the "
+        f"last {win} {last:.4f}); {out['tokens_per_s']:.1f} tokens/s, peak memory {out['peak_bytes'] / 1e9:.2f} "
+        f"GB, {out['wall_s']:.2f} s for {L_TRAIN_STEPS} steps and their checkpoints (host clock) -- {card}")
+
+    missing = [row for row, n in launched.items() if n == 0]
+    if missing:
+        raise AssertionError(f"path L: kernels of the path never launched: {missing}")
+    for row in report or []:
+        if row["name"] in launched and "launches_path_l" not in row:
+            row["launches_path_l"] = launched[row["name"]]
+            if row["name"] == "quickstart.smooth":
+                row["launches"] = launched[row["name"]]
+    wall = time.perf_counter() - t_phase
+    log(f"path L wall: {wall:.1f} s (kernels {t_build - t_phase:.1f} s; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"); aim {L_WALL_AIM:.0f} s; launches {launched} -- {card}")
+    return []
+
+
 def paths_a_to_g():
     """Phases 1-5 for paths A-G. Returns the kernels' report rows, the phases'
     walls and the card's name and power limit; what the paths held is freed
@@ -1721,6 +1943,9 @@ def paths_a_to_g():
     climate_defs = climate.DEFINITIONS
     for name, defs in climate_defs.items():
         S[f"climate.{name}"] = {be: build[be](defs) for be in ("cuda", "torch")}
+    # path L's quickstart stencil (examples/quickstart_torch.py)
+    quickstart = example("quickstart")
+    S["quickstart.smooth/float64"] = {be: build[be](quickstart.smooth_defs) for be in ("cuda", "torch")}
 
     def without_prefetch(st):
         """``st`` with its staged planes loaded plainly, without the cp.async
@@ -1821,7 +2046,7 @@ def paths_a_to_g():
     kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     kernels += [s.kernel for s in S_sync.values()]
     kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
-    kernels += variants + dist_kernels
+    kernels += variants + dist_kernels + [k for ks in path_l_kernels().values() for k in ks]
     for k in kernels:
         k.start_build()
     for k in kernels:
@@ -1890,6 +2115,7 @@ def paths_a_to_g():
         "climate.advect": {"dx": 1.0, "dy": 1.0}, "climate.euler": {"dt": 0.1},
         "climate.diffuse": {"alpha": 0.05}, "climate.vadv_system": {"dt": 0.1, "dz": 1.0},
         "climate.vadv": {},
+        "quickstart.smooth": {"weight": quickstart.WEIGHT},
     }
     for key, pair in S.items():
         name, dtype = (key.split("/") + ["float64"])[:2]
@@ -2702,11 +2928,13 @@ def paths_a_to_g():
 
             def fn():
                 return torch.add(phi, adv, alpha=sc["dt"], out=out)
-        elif name == "climate.diffuse":  # out = phi + alpha * five-point laplacian(phi), as one convolution
+        elif name in ("climate.diffuse", "quickstart.smooth"):
+            # out = phi + alpha * five-point laplacian(phi), as one convolution
+            alpha, src = (sc["alpha"], "phi") if name == "climate.diffuse" else (sc["weight"], "inp")
             w = torch.zeros((1, 1, 3, 3, 1), dtype=torch.float64, device=dev)
-            w[0, 0, 1, 1, 0] = 1.0 - 4.0 * sc["alpha"]
-            w[0, 0, 0, 1, 0] = w[0, 0, 2, 1, 0] = w[0, 0, 1, 0, 0] = w[0, 0, 1, 2, 0] = sc["alpha"]
-            x = fields["phi"][H - 1:H + ni + 1, H - 1:H + nj + 1][None, None]
+            w[0, 0, 1, 1, 0] = 1.0 - 4.0 * alpha
+            w[0, 0, 0, 1, 0] = w[0, 0, 2, 1, 0] = w[0, 0, 1, 0, 0] = w[0, 0, 1, 2, 0] = alpha
+            x = fields[src][H - 1:H + ni + 1, H - 1:H + nj + 1][None, None]
 
             def fn():
                 return torch.nn.functional.conv3d(x, w)[0, 0]
@@ -2722,6 +2950,8 @@ def paths_a_to_g():
     ] + [
         (f"climate.{n}", f"climate.{n}", "src/repro/core/codegen_pallas.py:123", climate_launches[n])
         for n in climate_defs
+    ] + [  # its launches: path L's (path_l fills them in)
+        ("quickstart.smooth", "quickstart.smooth/float64", "src/repro/core/codegen_pallas.py:123", 0),
     ]
     for name, key, replaces, n_launch in entries:
         pair = S[key]
@@ -3379,6 +3609,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report += path_k(card)
     walls.mark("path K")
+    # path L: the port's examples, after path K's ranks have exited
+    torch.cuda.empty_cache()
+    report += path_l(card, report)
+    walls.mark("path L")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -56,6 +56,7 @@ import shutil
 import subprocess
 import threading
 import weakref
+from collections import Counter
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Set, Tuple
 
@@ -85,27 +86,48 @@ _CTYPE = {
 }
 
 # every live kernel (each CudaKernel, and the hand-written kernels'
-# ``kernels._build.HandKernel``s); the module-level launch counts are read from them
+# ``kernels._build.HandKernel``s), for ``reset_launch_counts``
 _KERNELS: weakref.WeakSet = weakref.WeakSet()
+
+# launches by kernel key since the last reset; a kernel's ``launches``
+# setter moves it, so a kernel freed since (a driver's stencils die when it
+# returns) still counts
+_LAUNCHES: Counter = Counter()
 
 
 def register_kernel(kernel) -> None:
-    """Let ``launch_counts()`` see a kernel with a ``key`` and a ``launches`` count."""
+    """Let ``reset_launch_counts()`` reach a ``CountedKernel``."""
     _KERNELS.add(kernel)
 
 
+class CountedKernel:
+    """A kernel with a ``key`` and a ``launches`` count, which its launch
+    site raises by one; every change to it also moves ``launch_counts()``."""
+
+    _launches = 0
+
+    @property
+    def launches(self) -> int:
+        return self._launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        _LAUNCHES[self.key] += int(value) - self._launches
+        self._launches = int(value)
+
+
 def launch_counts() -> Dict[str, int]:
-    """Launches by kernel key, summed over the live kernels of the process."""
-    counts: Dict[str, int] = {}
-    for k in list(_KERNELS):
-        counts[k.key] = counts.get(k.key, 0) + k.launches
-    return counts
+    """Launches by kernel key since the last reset, of live kernels and of
+    kernels freed since."""
+    return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    """Set every live kernel's launch count to 0."""
+    """Set every kernel's launch count, and every key's, to 0."""
     for k in list(_KERNELS):
         k.launches = 0
+    for key in _LAUNCHES:
+        _LAUNCHES[key] = 0
 
 
 def _ctype(dtype: str) -> str:
@@ -1066,7 +1088,7 @@ class NvccLibrary:
         return self._lib
 
 
-class CudaKernel:
+class CudaKernel(CountedKernel):
     """The compiled kernel of one ``cuda`` stencil module.
 
     ``start_build`` launches ``nvcc`` in the background (so that many kernels

@@ -40,7 +40,10 @@ TORCH_BACKENDS = ("torch", "cuda")
 _ALL_BACKENDS = ("debug", "numpy") + TORCH_BACKENDS
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device=None) -> torch.device:
+    """The device a torch-backed entry point puts its data on: ``device``, or
+    the card when none is named; raises when that is the card and no GPU is
+    present (nothing falls back to the host)."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -186,7 +189,7 @@ def _alloc(shape, dtype, backend, default_origin, fill, axes, device) -> Storage
     if axes is None:
         axes = _default_axes(len(shape))
     if backend in TORCH_BACKENDS:
-        data = _torch_alloc(shape, _torch_dtype(dtype), backend, tuple(axes), fill, _resolve_device(device))
+        data = _torch_alloc(shape, _torch_dtype(dtype), backend, tuple(axes), fill, resolve_device(device))
     else:
         if device is not None:
             raise ValueError(f"backend {backend!r} storage lives in host memory; device= does not apply")
@@ -222,7 +225,7 @@ def from_array(array, backend="cuda", default_origin=None, dtype=None, axes=None
         axes = _default_axes(arr.ndim)
     if backend in TORCH_BACKENDS:
         src = torch.from_numpy(np.ascontiguousarray(arr))
-        data = _torch_alloc(arr.shape, src.dtype, backend, tuple(axes), "empty", _resolve_device(device))
+        data = _torch_alloc(arr.shape, src.dtype, backend, tuple(axes), "empty", resolve_device(device))
         data.copy_(src)
     else:
         if device is not None:

@@ -23,7 +23,7 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.storage import TORCH_BACKENDS, Storage, _resolve_device
+from repro_torch.core.storage import TORCH_BACKENDS, Storage, resolve_device
 
 from .batch import EnsembleError, from_member_arrays
 
@@ -39,7 +39,7 @@ def member_keys(seed: Any, members: int) -> List[int]:
 
 
 def _member_noise(draw, seed: Any, members: int, shape: Tuple[int, ...], dtype, device) -> torch.Tensor:
-    device = _resolve_device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     tdt = getattr(torch, np.dtype(dtype).name)
     out = torch.empty((int(members),) + tuple(shape), dtype=tdt, device=device)

@@ -21,7 +21,7 @@ from typing import Any, Optional, Sequence
 from repro_torch.core import caching, codegen_cuda
 
 
-class HandKernel:
+class HandKernel(codegen_cuda.CountedKernel):
     """One hand-written CUDA source and its C entry point ``symbol``.
 
     ``launches`` counts the calls that launched the kernel, and nothing else;

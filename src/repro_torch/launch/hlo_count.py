@@ -12,7 +12,11 @@ counterpart, and walks the aten operations a step dispatches instead
   a view;
 * **collectives** — payload bytes (the collective's output) by kind
   (all-reduce / all-gather / reduce-scatter / all-to-all /
-  collective-permute, and broadcast), both ``c10d`` and functional.
+  collective-permute, and broadcast), both ``c10d`` and functional; and
+  the point-to-point messages a halo exchange would post on the dry run's
+  fake process group (``record_messages``, the exchange's ``post`` hook:
+  one ``collective-permute`` a message, its payload's bytes, as XLA counts
+  a ``ppermute`` a device).
 
 Eager dispatch runs every iteration of a Python loop over layers or
 microbatches, so the walk sees each one: the reference's trip-count problem
@@ -25,12 +29,11 @@ does not arise.  On DTensors the walk sees the rank's own local operations
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 _DOTS = {"mm", "bmm", "addmm", "baddbmm", "convolution"}
 _COLLECTIVES = {
@@ -53,8 +56,17 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
-def _tensors(x):
-    return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
+def _tensors(x) -> list:
+    """The tensors in ``x``, through tuples, lists and dicts: what an aten
+    operation's arguments and outputs nest them in (cheaper than
+    ``tree_flatten``, which the walk would run on every operation)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
 
 
 def dot_flops(name: str, args, out) -> float:
@@ -82,8 +94,26 @@ class CostWalk(TorchDispatchMode):
         self.bytes = 0.0
         self.collectives: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self.messages: List[Dict[str, Any]] = []
         self.live_bytes = 0
         self.peak_bytes = 0
+
+    def _count(self, kind: str, nbytes: float) -> None:
+        self.collectives[kind] = self.collectives.get(kind, 0.0) + nbytes
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+
+    def record_messages(self, axis, sends) -> None:
+        """A ``parallel.halo.HaloExchange`` ``post`` hook for the dry run's
+        fake process group: each message ``(peer, stripe, tag)`` this rank
+        would send along ``axis`` is one ``collective-permute`` of the
+        stripe's bytes (the payload, once), and nothing is posted.  A real
+        group's exchange posts its messages, so any other backend raises."""
+        if axis.backend != "fake":
+            raise ValueError(f"cost walk: axis {axis.name!r} runs on backend {axis.backend!r}; "
+                             "only the dry run's 'fake' group's messages are recorded, not posted")
+        for peer, stripe, _tag in sends:
+            self.messages.append({"peer": int(peer), "bytes": _nbytes(stripe), "axis": axis.name})
+            self._count("collective-permute", _nbytes(stripe))
 
     def _release(self, n: int) -> None:
         self.live_bytes -= n
@@ -95,22 +125,19 @@ class CostWalk(TorchDispatchMode):
             return NotImplemented  # DTensor dispatches its local operations back through the walk
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if any(isinstance(t, FakeTensor) and t.fake_mode is not self.fake_mode
-               for t in _tensors((args, kwargs, out))):
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if any(isinstance(t, FakeTensor) and t.fake_mode is not self.fake_mode for t in ins + outs):
             return out
         name = func._overloadpacket.__name__
-        outs = _tensors(out)
         if name in _COLLECTIVES:
             kind = _COLLECTIVES[name]
-            payload = sum(map(_nbytes, _tensors(args[0] if name in _PAYLOAD_IS_INPUT else out)))
-            self.collectives[kind] = self.collectives.get(kind, 0.0) + payload
-            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self._count(kind, sum(map(_nbytes, _tensors(args[0] if name in _PAYLOAD_IS_INPUT else out))))
             return out
         if name in _DOTS:
             self.flops += dot_flops(name, args, out)
         if not func.is_view and name not in ("wait_tensor", "detach", "alias", "lift_fresh"):
-            self.bytes += sum(map(_nbytes, _tensors((args, kwargs)))) + sum(map(_nbytes, outs))
-            inputs = {id(t) for t in _tensors((args, kwargs))}
+            self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+            inputs = {id(t) for t in ins}
             for t in outs:  # a fresh output holds memory until it dies
                 if id(t) not in inputs:
                     n = _nbytes(t)

@@ -64,12 +64,17 @@ def cache_specs(model, batch: int, max_len: int) -> Any:
     return model.make_cache(batch, max_len, device="meta")
 
 
+def train_input_specs(cfg: ArchConfig, shape) -> Dict[str, Any]:
+    """A train cell's batch as meta tensors."""
+    return {k: _meta(s.shape, s.dtype) for k, s in make_batch_specs(cfg, shape).items()}
+
+
 def input_specs(arch: str, shape_id: str) -> Dict[str, Any]:
     """Stand-ins for every model input of a cell (the dry run's contract)."""
     cfg = get_arch(arch).full
     shape = get_shape(shape_id)
     if shape.kind == "train":
-        return {"batch": {k: _meta(s.shape, s.dtype) for k, s in make_batch_specs(cfg, shape).items()}}
+        return {"batch": train_input_specs(cfg, shape)}
     model = build_model(cfg)
     batch = serve_input_specs(cfg, shape.kind, shape.seq_len, shape.global_batch)
     return {"batch": batch, "cache": cache_specs(model, shape.global_batch, shape.seq_len)}

@@ -131,6 +131,12 @@ def init_param_tree(specs: Any, generator: Optional[torch.Generator] = None, dev
     return ParamTree(map_tree(lambda path, spec: init_leaf(path, spec, base, device), specs))
 
 
+def spec_tree_shapes(specs: Any) -> Any:
+    """ParamSpec tree → the same tree of meta tensors of each leaf's shape
+    and dtype (the reference's ``ShapeDtypeStruct`` tree, for dry runs)."""
+    return map_tree(lambda _path, s: torch.empty(s.shape, dtype=getattr(torch, s.dtype), device="meta"), specs)
+
+
 def init_leaf(path: str, spec: ParamSpec, base_seed: int, device) -> torch.Tensor:
     """The leaf at ``path`` of ``init_param_tree`` with a generator seeded ``base_seed``."""
     g = torch.Generator(device=device)

@@ -34,6 +34,7 @@ from .layers import (
     make_norm,
     map_tree,
     softcap,
+    spec_tree_shapes,
     unembed,
 )
 
@@ -104,8 +105,12 @@ class LM:
     def abstract_params(self) -> ParamTree:
         """The parameters ``init_params`` makes, as meta tensors: shapes and
         dtypes only, nothing drawn or held (the reference's ``eval_shape``)."""
-        return ParamTree(map_tree(lambda _path, sp: torch.empty(sp.shape, dtype=getattr(torch, sp.dtype),
-                                                                 device="meta"), self._typed_specs()))
+        return ParamTree(spec_tree_shapes(self._typed_specs()))
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The spec tree as meta tensors of its shapes and dtypes (the
+        reference's tree of ``ShapeDtypeStruct``)."""
+        return spec_tree_shapes(self.param_specs())
 
     def serving_params(self, params: ParamTree) -> ParamTree:
         """The weights cast once to the activation dtype ``cfg.dtype``, for
@@ -360,3 +365,20 @@ def exact_param_count(cfg: ArchConfig) -> int:
 
     map_tree(count, LM(cfg).param_specs())
     return total
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Active parameters per token (MoE experts scaled to top-k/E)."""
+    total = exact_param_count(cfg)
+    if cfg.family != "moe":
+        return total
+    expert_total = 0
+
+    def count(path: str, spec: ParamSpec) -> None:
+        nonlocal expert_total
+        keys = path.split("/")
+        if keys[-1] in ("wi", "wg", "wo") and "moe" in keys[:-1]:  # the experts' own leaves, not the shared MLP's
+            expert_total += int(np.prod(spec.shape))
+
+    map_tree(count, LM(cfg).param_specs())
+    return int(total - expert_total * (1.0 - cfg.moe.top_k / cfg.moe.n_experts))

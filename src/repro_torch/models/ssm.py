@@ -6,6 +6,13 @@ across chunks a (H, N, P) state is carried by a loop over chunks (the
 reference's ``lax.scan``).  The reference has no Pallas kernel here, so plain
 torch is the port.
 
+Under a mesh the SSD runs in a ``local_map`` on the rank's own batch rows
+and heads (``_ssd_sharded``): its layout is put in place once, and the
+chunk loop and einsums run on plain tensors.  DTensor would otherwise plan
+every operation of the loop, and the einsums' flattened (batch, heads)
+dimensions become strided shards whose planning alone took most of the dry
+run's host time on the three-axis mesh.
+
 Decode carries {conv tail (B, d_conv-1, d_xBC), state (B, H, N, P)}.
 """
 
@@ -17,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.parallel.sharding import matmul, with_logical_constraint
+from repro_torch.parallel.sharding import is_dtensor, matmul, with_logical_constraint
 
 from .layers import ParamSpec, causal_conv
 
@@ -40,11 +47,14 @@ def ssd_spec(d_model: int, cfg: SSMConfig) -> Dict[str, Any]:
     }
 
 
-def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] = None):
+def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] = None,
+                 head0: int = 0, n_heads: Optional[int] = None):
     """Core SSD scan.
 
     x: (B, S, H, P); dt: (B, S, H) (softplus'd); A: (H,) (negative);
     B, C: (B, S, G, N); D: (H,).  Returns (y (B,S,H,P), final state (B,H,N,P)).
+    ``x``'s H heads may be heads ``head0 ..`` of ``n_heads`` (a rank's own,
+    under a mesh): head j then reads group (head0 + j) // (n_heads / G).
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -60,9 +70,9 @@ def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] =
     # to chunks: (B, nc, Q, ...)
     xc = x.reshape(b, nc, q, h, p)
     dtc = dt.reshape(b, nc, q, h)
-    rep = h // g
-    Bh = B.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
-    Ch = C.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3)
+    group = torch.arange(head0, head0 + h, device=x.device) // ((n_heads or h) // g)  # each head's group
+    Bh = B.reshape(b, nc, q, g, n).index_select(3, group)  # (B,nc,Q,H,N)
+    Ch = C.reshape(b, nc, q, g, n).index_select(3, group)
 
     da = dtc * A[None, None, None, :]          # (B, nc, Q, H) log-decay per step
     cum = torch.cumsum(da, dim=2)              # within-chunk cumulative
@@ -103,6 +113,44 @@ def _ssd_chunked(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] =
     return y.reshape(b, nc * q, h, p)[:, :s], state
 
 
+def _ssd_sharded(x, dt, A, B, C, D, chunk: int, state0: Optional[torch.Tensor] = None):
+    """``_ssd_chunked`` on DTensors: each rank scans its own batch rows (the
+    mesh axes that shard ``x``'s batch) and heads (the axis that shards its
+    heads) over the whole sequence; every other axis sees it replicated.
+    The gradients of the leaves a rank reads whole (A and D across batch
+    shards, B and C across head shards) are the sum of the ranks'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    h = x.shape[2]
+    x_pl, dt_pl, hv_pl, bc_pl, st_pl = [], [], [], [], []
+    hv_grad, bc_grad = [], []
+    head_dim = None
+    for i, p in enumerate(x.placements):
+        if p == Shard(0):  # batch rows
+            x_pl.append(p), dt_pl.append(p), hv_pl.append(Replicate()), bc_pl.append(p), st_pl.append(p)
+            hv_grad.append(Partial()), bc_grad.append(p)
+        elif p == Shard(2):  # heads
+            head_dim = i
+            x_pl.append(p), dt_pl.append(p), hv_pl.append(Shard(0)), bc_pl.append(Replicate()), st_pl.append(Shard(1))
+            hv_grad.append(Shard(0)), bc_grad.append(Partial())
+        else:  # the sequence, head_dim or a partial sum: the scan needs it whole
+            for pl in (x_pl, dt_pl, hv_pl, bc_pl, st_pl, hv_grad, bc_grad):
+                pl.append(Replicate())
+
+    def body(xl, dtl, al, bl, cl, dl, sl):
+        head0 = 0 if head_dim is None else mesh.get_local_rank(head_dim) * xl.shape[2]
+        return _ssd_chunked(xl, dtl, al, bl, cl, dl, chunk, state0=sl, head0=head0, n_heads=h)
+
+    st_in = None if state0 is None else st_pl
+    fn = local_map(body, out_placements=(x_pl, st_pl),
+                   in_placements=(x_pl, dt_pl, hv_pl, bc_pl, bc_pl, hv_pl, st_in),
+                   in_grad_placements=(x_pl, dt_pl, hv_grad, bc_grad, bc_grad, hv_grad, st_in),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, dt, A, B, C, D, state0)
+
+
 def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
               cache: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -132,8 +180,8 @@ def ssd_block(params, x: torch.Tensor, cfg: SSMConfig, *,
     A = -torch.exp(params["A_log"].to(ct))  # (H,) negative
 
     state0 = cache["state"].to(ct) if cache is not None else None
-    y, final_state = _ssd_chunked(xs.to(ct), dt, A, B.to(ct), C.to(ct), params["D"].to(ct), cfg.chunk,
-                                  state0=state0)
+    scan = _ssd_sharded if is_dtensor(xs) else _ssd_chunked
+    y, final_state = scan(xs.to(ct), dt, A, B.to(ct), C.to(ct), params["D"].to(ct), cfg.chunk, state0=state0)
     y = y.reshape(b, s, di).to(x.dtype)
 
     # gated RMSNorm (Mamba-2)

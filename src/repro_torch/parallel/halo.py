@@ -17,9 +17,12 @@ messages match in posting order.
 Transport follows the axis group's backend, never the hardware the code
 finds: ``nccl`` sends device tensors; ``gloo`` sends host tensors, so a CUDA
 block's stripes go through pinned host buffers (copied out, the stream
-synchronised, sent; received, copied back in).  Stripes of a card-layout
-field are strided, so every message goes through a contiguous buffer,
-allocated once per stripe shape and reused.
+synchronised, sent; received, copied back in); any other backend raises
+when the exchange runs.  A ``post`` hook, where given, takes each axis'
+messages in place of the transport: the dry run's cost walk records them
+there (``launch.hlo_count.CostWalk.record_messages``) and posts nothing.
+Stripes of a card-layout field are strided, so every message goes through a
+contiguous buffer, allocated once per stripe shape and reused.
 
 Edges: a rank no pair names as a sender's receiver receives nothing, and its
 rim keeps the zeros it was allocated with (the reference's ``ppermute`` gives
@@ -31,7 +34,7 @@ exchanges this process ran and the point-to-point messages it posted.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,9 +88,6 @@ class _Axis:
         self.group = mesh.get_group(name)
         self.size = axis_size(mesh, name)
         self.backend = str(dist.get_backend(self.group))
-        if self.backend not in ("gloo", "nccl"):
-            raise ValueError(f"halo exchange: axis {name!r} runs on backend {self.backend!r}; "
-                             "expected 'gloo' or 'nccl'")
         ranks = dist.get_process_group_ranks(self.group)
         c, n = int(mesh.get_local_rank(name)), self.size
         up, down = set(_perm_up(n, periodic)), set(_perm_down(n, periodic))
@@ -106,11 +106,17 @@ class HaloExchange:
     (>= ``halo``) rows and columns in along its i and j dimensions (the
     first two, or the two after a leading member axis with ``lead=1``).
     One exchange of a member-batched buffer carries every local member.
+
+    ``post(axis, sends)``, where given, is called with each axis' messages,
+    ``(peer, stripe, tag)`` each, in place of the transport: nothing is
+    posted and the rims keep what they hold.
     """
 
     def __init__(self, mesh, i_axis: str = "data", j_axis: str = "model",
-                 periodic: Sequence[bool] = (False, False)):
+                 periodic: Sequence[bool] = (False, False),
+                 post: Optional[Callable[[_Axis, list], None]] = None):
         self.mesh = mesh
+        self.post = post
         self.i_axis, self.j_axis = i_axis, j_axis
         self.periodic = tuple(bool(p) for p in periodic)
         self.axes = (_Axis(mesh, i_axis, self.periodic[0]), _Axis(mesh, j_axis, self.periodic[1]))
@@ -130,6 +136,9 @@ class HaloExchange:
 
     def _exchange_axis(self, axis: _Axis, lo_send, hi_send, lo_rim, hi_rim) -> None:
         """Post both directions of one axis in one batch and wait for it."""
+        if self.post is None and axis.backend not in ("gloo", "nccl"):
+            raise ValueError(f"halo exchange: axis {axis.name!r} runs on backend {axis.backend!r}; "
+                             "expected 'gloo' or 'nccl'")
         if axis.backend == "nccl" and not lo_send.is_cuda:
             raise ValueError(f"halo exchange: axis {axis.name!r} runs on nccl, which sends CUDA tensors; "
                              f"the field is on {lo_send.device}")
@@ -145,6 +154,9 @@ class HaloExchange:
         if axis.recv_next is not None:
             recvs.append((axis.recv_next, hi_rim, 2))
         if not sends and not recvs:
+            return
+        if self.post is not None:
+            self.post(axis, sends)
             return
         ops = []
         for k, (peer, stripe, tag) in enumerate(sends):

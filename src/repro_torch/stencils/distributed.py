@@ -19,9 +19,11 @@ the mesh calls with its own LOCAL blocks (``parallel.halo.shard_blocks``)
 and gets its own interiors back (``gather_blocks`` assembles the global
 array).  The caller's blocks are not written: the stencil runs on fresh
 haloed copies, laid out as the backend's storages are (the card layout on
-``cuda``).  ``overlap`` is stored and not used, as in the reference.  The
-reference's ``lower`` (HLO text) has no counterpart: ``parallel.halo
-.message_counts()`` counts the messages an exchange posts instead.
+``cuda``).  ``overlap`` is stored and not used, as in the reference.
+``lower`` is the reference's ``lower`` for the dry run: one rank's step on
+fake tensors under a cost walk, on the fake process group
+(``launch.dryrun.lower_stencil_cell``), with an exchange whose messages go
+to the walk and are not posted.
 """
 
 from __future__ import annotations
@@ -85,3 +87,35 @@ class DistributedStencil:
         self.stencil(**padded, **scalars, domain=(ni, nj, nk), origin=origins)
         return {name: (padded[name] if origins[name] == (0, 0, 0) else interior(padded[name], h))
                 for name in fields if name in self.written}
+
+    def lower(self, field_specs: Dict[str, torch.Tensor], scalars: Optional[Dict] = None,
+              device="cuda") -> Dict[str, Any]:
+        """Run this rank's step (exchange, stencil, interiors) once on fake
+        tensors of ``field_specs``' LOCAL shapes and dtypes (meta tensors, say)
+        on ``device``, under a ``launch.hlo_count.CostWalk``, and return the
+        walk's totals: ``flops``, ``bytes``, ``collectives`` (bytes by kind),
+        ``counts`` (messages by kind), ``messages`` (peer, bytes, axis each),
+        ``output_bytes`` (alive at the end) and ``temp_bytes`` (the rest of
+        the peak).  The exchange hands its messages to the walk
+        (``CostWalk.record_messages``), which takes only the dry run's fake
+        process group's."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.launch.hlo_count import CostWalk
+
+        fake = FakeTensorMode(allow_non_fake_inputs=True)
+        walk = CostWalk(fake)
+        real = self.exchange
+        self.exchange = HaloExchange(self.mesh, self.i_axis, self.j_axis, self.periodic, post=walk.record_messages)
+        try:
+            with fake:
+                fields = {n: torch.empty(tuple(s.shape), dtype=s.dtype, device=device)
+                          for n, s in field_specs.items()}
+                with walk:
+                    out = self(fields, scalars)
+                live_at_end = walk.live_bytes
+                del out
+        finally:
+            self.exchange = real
+        return {**walk.totals(), "counts": dict(walk.counts), "messages": list(walk.messages),
+                "output_bytes": int(live_at_end), "temp_bytes": int(walk.peak_bytes - live_at_end)}

@@ -156,3 +156,123 @@ def test_dryrun_reports_match_the_reference(reports, i, monkeypatch):
     assert {"flops", "bytes_accessed"} <= set(rep["cost"]) and {"flops", "bytes", "collectives"} <= set(rep["walked"])
     assert rep["devices"] == int(np.prod(mesh_shape)) and rep["cost"]["flops"] > 0
     assert rep["memory"]["argument_bytes"] == _ref_argument_bytes(arch, shape_id, mesh_shape, monkeypatch)
+
+
+# ---------------------------------------------------------------------------
+# the paper's own workload: the distributed-hdiff stencil cell
+# ---------------------------------------------------------------------------
+
+STENCIL_IJ = 1024  # the reduced global_ij (the production cell: 8192)
+_REF_STENCIL = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro.launch.dryrun import lower_stencil_cell
+print(json.dumps([lower_stencil_cell(m, global_ij={ij}) for m in (False, True)]))
+"""
+_PORT_STENCIL = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch.dryrun import lower_stencil_cell
+print(json.dumps([lower_stencil_cell(m, global_ij={ij}, device="cpu") for m in (False, True)]))
+"""
+
+
+def _run(code: str, env=None):
+    import os
+
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,
+                          env={**os.environ, **(env or {})})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def stencil_reports():
+    """(reference, port) reports of the stencil cell on both production
+    meshes at ``STENCIL_IJ``: each package in its own subprocess (the
+    reference with 512 host devices, as its dry run sets ``XLA_FLAGS``; the
+    port's fake group is global to a process)."""
+    ref = _run(_REF_STENCIL.format(src=SRC, ij=STENCIL_IJ),
+               {"XLA_FLAGS": "--xla_force_host_platform_device_count=512", "JAX_PLATFORMS": "cpu"})
+    port = _run(_PORT_STENCIL.format(src=SRC, ij=STENCIL_IJ))
+    return ref, port
+
+
+@pytest.mark.parametrize("mesh", [0, 1], ids=["16x16", "2x16x16"])
+def test_stencil_cell_posts_the_references_collective_permutes(stencil_reports, mesh):
+    """An interior rank's halo exchange: the reference's collective-permute
+    count and bytes, link bytes and argument bytes, exactly."""
+    ref, port = (r[mesh] for r in stencil_reports)
+    assert port["mesh"] == ref["mesh"] and port["shape"] == ref["shape"]
+    assert port["collectives"] == ref["collectives"]
+    assert port["collectives"]["collective-permute"]["count"] == 8
+    assert port["collective_link_bytes"] == ref["collective_link_bytes"]
+    assert port["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
+    # each message is one stripe, to one of the rank's four neighbours
+    assert len({m["peer"] for m in port["messages"]}) == 4
+    assert sum(m["bytes"] for m in port["messages"]) == port["collectives"]["collective-permute"]["bytes"]
+
+
+def test_fake_group_exchange_records_and_posts_nothing():
+    """On the dry run's fake group an exchange whose ``post`` hook is the
+    walk's posts no message (the counts of posted messages stay), records
+    the four an interior rank would send in the walk, and leaves the rims
+    as they are; without the hook the fake group raises."""
+    from repro_torch.launch.dryrun import fake_world, interior_rank
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import halo
+
+    dims = (4, 4)
+    with fake_world(16, rank=interior_rank(dims)):
+        mesh = make_mesh(dims, ("data", "model"), device_type="cpu")
+        walk = CostWalk()
+        ex = halo.HaloExchange(mesh, post=walk.record_messages)
+        padded = torch.zeros(16, 12, 3, dtype=torch.float64)
+        halo.interior(padded, 2).fill_(1.0)
+        before = halo.message_counts()
+        with walk:
+            ex.fill(padded, 2)
+        after = halo.message_counts()
+        assert (after["send"], after["recv"]) == (before["send"], before["recv"])
+        assert float(padded.sum()) == 12 * 8 * 3  # the rims hold their zeros
+        rank = interior_rank(dims)  # (2, 2): neighbours (1, 2), (3, 2), (2, 1), (2, 3)
+        assert sorted(m["peer"] for m in walk.messages) == sorted([rank - 4, rank + 4, rank - 1, rank + 1])
+        # i stripes 2 x 8 x 3, j stripes of the i-padded rows 16 x 2 x 3, float64
+        assert sorted(m["bytes"] for m in walk.messages) == [2 * 8 * 3 * 8] * 2 + [16 * 2 * 3 * 8] * 2
+        assert walk.counts == {"collective-permute": 4}
+        with pytest.raises(ValueError, match="backend 'fake'"):
+            halo.HaloExchange(mesh).fill(padded, 2)
+
+
+def test_exchange_refuses_other_backends(monkeypatch):
+    """Only gloo and nccl carry an exchange, and the walk records only the
+    dry run's fake group's messages."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import halo
+
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        monkeypatch.setattr(halo.dist, "get_backend", lambda group=None: "mpi")
+        padded = torch.zeros(6, 6, 1, dtype=torch.float64)
+        with pytest.raises(ValueError, match="backend 'mpi'"):
+            halo.HaloExchange(mesh).fill(padded, 1)
+        with pytest.raises(ValueError, match="backend 'mpi'"):
+            halo.HaloExchange(mesh, post=CostWalk().record_messages).fill(padded, 1)
+
+
+def test_real_gloo_group_takes_the_real_exchange_under_a_walk(tmp_path):
+    """Four gloo ranks on (2, 2), each exchanging under an active cost walk:
+    the messages are posted (counted as sent and received), none is recorded
+    as the fake group's, and the rims hold the neighbours' stripes; an
+    exchange whose ``post`` hook is the walk's refuses the real group."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_dist_ranks as dist_ranks
+
+    from repro_torch.launch.ranks import run_ranks
+
+    res = run_ranks(dist_ranks.exchange_under_a_walk, 4, store_dir=tmp_path, timeout=120)
+    for r in res:
+        assert r["recorded"] == 0 and r["sent"] == 2 and r["received"] == 2, r
+        assert r["rims_right"], r
+        assert "backend 'gloo'" in r["walk_hook_refused"], r

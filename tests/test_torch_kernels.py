@@ -206,3 +206,16 @@ def test_float32_source_has_no_bare_double_literal(name):
     assert bare == []
     if name not in ("vadv", "vintg"):  # those two have no float literal
         assert re.search(r"real_t\(\d+\.\d*(e-?\d+)?\)", code)  # the literals are there, typed
+
+
+def test_module_launch_counts_keep_a_freed_kernels_launches():
+    """A driver's stencils die when it returns (an example's ``main``): the
+    launches their kernels made still count until the next reset."""
+    codegen_cuda.reset_launch_counts()
+    st = t_vintg.build_vintg("cuda")
+    key = st.kernel.key
+    st.launches = 2
+    del st
+    assert codegen_cuda.launch_counts().get(key, 0) == 2
+    codegen_cuda.reset_launch_counts()
+    assert codegen_cuda.launch_counts().get(key, 0) == 0

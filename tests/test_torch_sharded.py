@@ -124,6 +124,27 @@ def test_other_families_shard(four, arch):
     assert res["loss"] <= F64 and res["grad"] <= F64, res
 
 
+def test_product_of_a_sequence_sharded_input_without_the_gather(four):
+    """A product of a sequence-sharded input on (2, 2), float64, forward and
+    backward: ``parallel.sharding.matmul`` (which gathers the inner
+    dimension) within 1e-12 of the single process; and from torch 2.13 on
+    the bare DTensor product too, so that there the gather is kept for its
+    fewer collective bytes, not for correctness (before 2.13 the bare
+    product raises)."""
+    res = four[0]["inner_product"]
+    assert res["matmul"] <= F64, res
+    if torch.__version__ >= (2, 13):
+        assert res["bare"] <= F64, res
+
+
+def test_ssm_groups_shard_over_heads(four):
+    """Mamba-2 with 2 B/C groups on (2, 2), its 4 heads sharded over 'model'
+    (each rank's heads read their own group): loss and every gradient within
+    1e-12 of the single process's (of the leaf's largest)."""
+    res = four[0]["family/mamba2-370m/n_groups=2"]
+    assert res["loss"] <= F64 and res["grad"] <= F64, res
+
+
 def test_carried_reference_weights_shard(four):
     """The reference's weights carried with ``models.convert`` and placed over
     (2, 2) by ``distribute_tree``: the sharded forward's logits within 1e-5

@@ -284,3 +284,35 @@ def compressed_allreduce(rank: int, world: int, grads: np.ndarray, errors: np.nd
     return {"mean": plain["g"].numpy(), "bf16": plain["stack"][0].float().numpy(),
             "bf16_dtype": str(plain["stack"][0].dtype), "ef_mean": reduced["g"].numpy(),
             "residual": residual["g"].numpy()}
+
+
+def exchange_under_a_walk(rank, world):
+    """One 1-deep exchange on (2, 2) under an active ``CostWalk``: the
+    messages this rank posted and received, the messages the walk recorded
+    (none on a real group), and whether each rim holds its neighbour's
+    stripe (every block filled with its rank's number); and the error of an
+    exchange whose ``post`` hook is the walk's (it takes only the dry run's
+    fake group)."""
+    from repro_torch.launch.hlo_count import CostWalk
+
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    ex = halo.HaloExchange(mesh)
+    padded = torch.zeros(6, 6, 1, dtype=torch.float64)
+    halo.interior(padded, 1).fill_(float(rank))
+    before = halo.message_counts()
+    with CostWalk() as walk:
+        ex.fill(padded, 1)
+    after = halo.message_counts()
+    ci, cj = int(mesh.get_local_rank("data")), int(mesh.get_local_rank("model"))
+    other_i, other_j = (1 - ci) * 2 + cj, ci * 2 + (1 - cj)
+    rim_i = padded[5 if ci == 0 else 0, 1:5, 0]  # the i rim toward the other data rank
+    rim_j = padded[1:5, 5 if cj == 0 else 0, 0]
+    try:
+        halo.HaloExchange(mesh, post=walk.record_messages).fill(padded, 1)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    return {"recorded": len(walk.messages), "sent": after["send"] - before["send"],
+            "received": after["recv"] - before["recv"],
+            "rims_right": bool((rim_i == other_i).all() and (rim_j == other_j).all()),
+            "walk_hook_refused": refused}

@@ -142,7 +142,43 @@ def _deviation(got, ref) -> dict:
 def four_rank_cases(rank: int, world: int, ckpt_dir: str, carried: dict) -> dict:
     """Everything the 4-rank tests check, in one spawn."""
     return {**train_cases(rank, world, ckpt_dir), **serve_cases(rank, world), **family_cases(rank, world),
-            **carried_case(rank, world, carried)}
+            **carried_case(rank, world, carried), **inner_product_case(rank, world)}
+
+
+def inner_product_case(rank: int, world: int) -> dict:
+    """A matrix product of a sequence-sharded (B, S, D) activation on (2, 2),
+    float64, forward and backward (the gradient flowing back sequence-sharded,
+    as a residual stream hands it): the bare DTensor product (no gather of
+    the inner dimension) and ``parallel.sharding.matmul``, each against the
+    single process: the largest deviation of y, dx and dw from it, or the
+    error the product raised."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.parallel.sharding import matmul
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 8, 16, generator=g, dtype=torch.float64)
+    w = torch.randn(16, 12, generator=g, dtype=torch.float64)
+    c = torch.randn(4, 8, 12, generator=g, dtype=torch.float64)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = xs @ ws
+    (y * c).sum().backward()
+    mesh = make_mesh((2, 2), AXES, "cpu")
+    seq = (Shard(0), Shard(1))
+    out = {}
+    for name, product in (("bare", lambda a, b: a @ b), ("matmul", matmul)):
+        xd = distribute_tensor(x, mesh, seq).requires_grad_()
+        wd = distribute_tensor(w, mesh, (Replicate(), Shard(1))).requires_grad_()
+        try:
+            with spmd_scope():
+                yd = product(xd, wd).redistribute(mesh, seq)
+                (yd * distribute_tensor(c, mesh, seq)).sum().backward()
+        except Exception as e:  # noqa: BLE001 — the bare product before torch 2.13
+            out[name] = repr(e)
+            continue
+        out[name] = max(float((got.full_tensor() - want).abs().max() / want.abs().max())
+                        for got, want in ((yd, y), (xd.grad, xs.grad), (wd.grad, ws.grad)))
+    return {"inner_product": out}
 
 
 def carried_case(rank: int, world: int, tree: dict) -> dict:
@@ -411,25 +447,35 @@ def family_cases(rank: int, world: int) -> dict:
     """The ssm, enc-dec and vlm families (float64, every leaf float64) on
     (2, 2): the loss and every gradient against the single process."""
     _quiet()
-    out = {}
     mesh = make_mesh((2, 2), AXES, "cpu")
-    for arch in OTHER_ARCHS:
-        model = build_model(config(arch, "float64"))
-        state = fresh_state(model)
-        b = {**batch_of(model.cfg, 5), **_frontend_inputs(model.cfg)}
-        loss, _ = model.loss(state.params, b, remat=False)
-        loss.backward()
-        ref = {p: t.grad for p, t in state.params.leaves()}
-        with axis_rules(DEFAULT_RULES, mesh):
-            sh = distribute_tree(fresh_state(model), state_shardings(model, mesh))
-            dloss, _ = model.loss(sh.params, distribute_tree(b, batch_shardings(mesh, b)), remat=True)
-            with spmd_scope():
-                dloss.backward()
-            worst = 0.0
-            for path, t in sh.params.leaves():
-                got, want = t.grad.full_tensor(), ref[path]
-                # a key bias's exact gradient is 0 (softmax is shift-invariant): absolute there
-                scale = max(float(want.abs().max()), 1e-3)
-                worst = max(worst, float((got - want).abs().max()) / scale)
-        out[f"family/{arch}"] = {"loss": abs(float(dloss.full_tensor()) - float(loss)), "grad": worst}
+    out = {f"family/{arch}": _loss_and_grads_sharded(config(arch, "float64"), mesh) for arch in OTHER_ARCHS}
+    # Mamba-2 with 2 B/C groups: each 'model' rank's 2 of the 4 heads read
+    # the other group, so the head-to-group mapping of the sharded SSD counts
+    grouped = config("mamba2-370m", "float64")
+    grouped = replace(grouped, ssm=replace(grouped.ssm, n_groups=2))
+    out["family/mamba2-370m/n_groups=2"] = _loss_and_grads_sharded(grouped, mesh)
     return out
+
+
+def _loss_and_grads_sharded(cfg, mesh) -> dict:
+    """The loss and every gradient of ``cfg``'s model on ``mesh``, against
+    the single process: the loss's deviation and the largest of the leaves'
+    (each of its leaf's largest)."""
+    model = build_model(cfg)
+    state = fresh_state(model)
+    b = {**batch_of(model.cfg, 5), **_frontend_inputs(model.cfg)}
+    loss, _ = model.loss(state.params, b, remat=False)
+    loss.backward()
+    ref = {p: t.grad for p, t in state.params.leaves()}
+    with axis_rules(DEFAULT_RULES, mesh):
+        sh = distribute_tree(fresh_state(model), state_shardings(model, mesh))
+        dloss, _ = model.loss(sh.params, distribute_tree(b, batch_shardings(mesh, b)), remat=True)
+        with spmd_scope():
+            dloss.backward()
+        worst = 0.0
+        for path, t in sh.params.leaves():
+            got, want = t.grad.full_tensor(), ref[path]
+            # a key bias's exact gradient is 0 (softmax is shift-invariant): absolute there
+            scale = max(float(want.abs().max()), 1e-3)
+            worst = max(worst, float((got - want).abs().max()) / scale)
+    return {"loss": abs(float(dloss.full_tensor()) - float(loss)), "grad": worst}
