@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before the result line:
    with the hand-written flash-attention (float32, scores on the float64
    tensor cores: ``flash_fwd.cu``; bfloat16 on the tensor cores:
    ``flash_fwd_sm90.cu``; their ``-Xptxas -v`` registers and spills are
-   printed) and RG-LRU sources, all at once, into ``.gt_cache_torch/``; the
+   printed) and RG-LRU sources, each source once, ``NVCC_JOBS`` at a time,
+   into ``.gt_cache_torch/`` (path M's stencils with the rest); the
    climate step's ``@program`` and its 21-member ``Ensemble`` are compiled
    first on storages of meta tensors, so that their group kernels, the
    groups' member-batched kernels and the 21-member statistics stencil
@@ -149,7 +150,15 @@ Phases, in order; any failure exits non-zero before the result line:
    21-member ensemble (one launch per group and step, the control member bit
    for bit against the one-member run), the serving example (each response
    bit for bit against its request run alone) and the ~100M LM trained 60
-   steps at full width (the loss falls; tokens/s, peak memory);
+   steps at full width (the loss falls; tokens/s, peak memory); (M), after
+   path L: the stencil toolchain's matrices (``path_m``): every corpus
+   program the cuda backend builds at ``block=(4, 4)`` and opt levels 0, 3
+   and 1 or 2 (M1, within 1e-12 of the port's ``debug`` backend at opt
+   level 0), every case of ``tests/torch_stencil_cases.py`` at opt level 0
+   and the default (M2, within 1e-13), each launched once; and the vertical
+   flux divergence (a half-level flux temporary read one plane up in the
+   PARALLEL interval that writes it) at 256 x 256 x 80 float64 (M3), its
+   kernel against its plain module (1e-12), timed beside its bound;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -180,6 +189,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -217,6 +227,7 @@ DIST_MESH, DIST_GLOBAL, DIST_LOCAL = (2, 2), (512, 512, 80), (256, 256, 80)
 DIST_ENS_MESH, DIST_ENS_GLOBAL, DIST_MEMBERS = (2, 1, 2), (256, 512, 80), 4
 DIST_TIMEOUT = 120  # seconds for the ranks' whole run, and the process group's timeout
 HDIFF_ALPHA = 0.05
+NVCC_JOBS = 32  # nvcc processes at once in the build phase (the machine has 8 cores)
 # path H: (arch, prompt, runs), each at full width, batch LM_BATCH; a run is
 # (dtype, depth or None for the full one, whether its logits are held against
 # the plain rerun).  bf16 runs are held where the bf16 rounding of the random
@@ -312,6 +323,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def build_all(kernels, jobs: int = NVCC_JOBS) -> None:
+    """Compile every kernel's source with nvcc, each source once, ``jobs``
+    at a time (the first in the list start first); a failed build raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    unique = list({k.library.lib_path: k for k in kernels}.values())
+
+    def one(k):
+        k.start_build()
+        k.finish_build()
+
+    with ThreadPoolExecutor(jobs) as pool:
+        list(pool.map(one, unique))
 
 
 def stencil_bound(st, domain, members=1, shared=()):
@@ -1885,6 +1911,130 @@ def path_l(card: str, report=None) -> list:
     return []
 
 
+M_DZ = 0.7
+M_WALL_AIM = 90.0  # seconds, builds included
+
+
+def stencil_cases():
+    """``tests/torch_stencil_cases.py``: the stencils the CPU mirrors and path M share."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_stencil_cases
+
+    return torch_stencil_cases
+
+
+@functools.lru_cache(maxsize=None)
+def path_m_build() -> dict:
+    """Path M's stencils, built once (not compiled): M1's corpus runs with the
+    programs the cuda backend rejected and those the reference's Pallas limit
+    rejects, M2's case runs, M3's vertical flux divergence (the cuda stencil
+    and the plain torch one) at the default block, and the kernels of all
+    three for the build phase."""
+    from repro_torch.core import gtscript
+
+    cases = stencil_cases()
+    m1, rejected, expected = cases.corpus_runs(ROOT / "tests" / "corpus")
+    m2 = cases.case_runs()
+    m3 = {be: gtscript.stencil(be)(cases.vertical_flux_divergence_defs) for be in ("cuda", "torch")}
+    kernels = [r.stencil.kernel for r in m1 + m2] + [m3["cuda"].kernel]
+    return {"m1": m1, "rejected": rejected, "expected": expected, "m2": m2, "m3": m3, "kernels": kernels}
+
+
+def path_m(card: str) -> list:
+    """Path M (after path L): the stencil toolchain's matrices on the card,
+    every launch count zeroed just before and read just after.  M1: the 28
+    corpus programs the cuda backend builds, at ``block=(4, 4)`` and opt
+    levels 0, 3 and 1 or 2 by index, random initial outputs, each within
+    1e-12 of the port's ``debug`` backend at ``opt_level=0`` (which the CPU
+    mirror holds bit for bit against the reference's); the rejected programs
+    must be the reference's Pallas limit's.  M2: every case of
+    ``tests/torch_stencil_cases.py`` at opt level 0 and the default,
+    ``block=(4, 4)``, within 1e-13 of the same oracle.  M3: the vertical flux
+    divergence (a half-level flux temporary written and read one plane up in
+    one PARALLEL interval: two k-sweeps, the flux in full per-block scratch)
+    at DOMAIN float64 on card-layout fields, once on the path; then its
+    kernel against its plain module (1e-12), both timed by CUDA events beside
+    its bound.  Returns M3's row.  Alone: ``chip_smoke.path_m(card)`` builds
+    the kernels first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import codegen_cuda, storage
+
+    cases = stencil_cases()
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    built = path_m_build()
+    build_all(built["kernels"])
+    t_build = time.perf_counter()
+    if built["rejected"] != built["expected"]:
+        raise AssertionError(f"M1: cuda rejected {built['rejected']}, the reference's limit rejects "
+                             f"{built['expected']}")
+    st, plain = built["m3"]["cuda"], built["m3"]["torch"]
+    rng = np.random.default_rng(22)
+    m3_host = {n: rng.normal(size=DOMAIN) for n in ("q", "w", "div")}
+    m3 = {n: storage.from_array(a, backend="cuda", device=dev) for n, a in m3_host.items()}
+
+    torch.cuda.synchronize()
+    codegen_cuda.reset_launch_counts()
+    worst = {"M1": 0.0, "M2": 0.0}
+    for phase in ("M1", "M2"):
+        for run in built[phase.lower()]:
+            worst[phase] = max(worst[phase], cases.hold(run, dev))
+    st(**m3, dz=M_DZ, domain=DOMAIN)
+    torch.cuda.synchronize()
+    counts = codegen_cuda.launch_counts()
+    t_run = time.perf_counter()
+    launched = {r.label: counts.get(r.stencil.kernel.key, 0) for r in built["m1"] + built["m2"]}
+    m3_launches = counts.get(st.kernel.key, 0)
+    missing = [lab for lab, n in launched.items() if n == 0] + ([] if m3_launches else ["M3"])
+    if missing:
+        raise AssertionError(f"path M: kernels of the path never launched: {missing}")
+    if not all(np.isfinite(f.to_numpy()).all() for f in m3.values()):
+        raise AssertionError("M3: non-finite values")
+    log(f"path M1 corpus: {len(built['m1'])} configurations of {len(built['m1']) // 3} programs at block "
+        f"{cases.BLOCK}, opt levels 0, 3 and 1 or 2; max |kernel - debug@0| {worst['M1']:.3e} (tolerance "
+        f"{cases.CORPUS_TOL}); rejected {built['rejected']}, the reference's Pallas limit's -- {card}")
+    log(f"path M2 cases: {len(built['m2'])} configurations of {len(cases.CASES)} stencils at block {cases.BLOCK}, "
+        f"opt levels 0 and default; max |kernel - debug@0| {worst['M2']:.3e} (tolerance {cases.CASE_TOL}) "
+        f"-- {card}")
+
+    # M3: kernel against its plain module, then both timed
+    origins = {n: (0, 0, 0) for n in m3}
+    sc = {"dz": M_DZ}
+    for n, a in m3_host.items():
+        m3[n].data.copy_(torch.from_numpy(a))
+    plain(**m3, dz=M_DZ, domain=DOMAIN)
+    want = m3["div"].data.clone()
+    m3["div"].data.copy_(torch.from_numpy(m3_host["div"]))
+    fields = {n: f.data for n, f in m3.items()}
+    launch = st.kernel.prepare(fields, sc, DOMAIN, origins)
+    launch()
+    torch.cuda.synchronize()
+    err = float((m3["div"].data - want).abs().max())
+    if not torch.allclose(m3["div"].data, want, rtol=1e-12, atol=1e-12):
+        raise AssertionError(f"M3: the kernel differs from its plain module by {err:.3e}")
+    ms = cuda_ms(launch, iters=50)
+    plain_ms = cuda_ms(lambda: st._run(fields, sc, DOMAIN, origins), iters=5)
+    bound_ms, bound_by, nbytes, flops = stencil_bound(st, DOMAIN)
+    scratch = st.kernel.scratch_bytes(DOMAIN)
+    sched = st.kernel.module.SCHEDULE
+    log(f"time M3 vertical_flux_divergence {DOMAIN} float64 (card layout, block {st.kernel.module.BLOCK}): "
+        f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, no single PyTorch call, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP); full per-block scratch "
+        f"{scratch / 1e6:.1f} MB {sched['temporaries']}, k-sweeps {sched['parallel_sweeps']}; launches on the "
+        f"path {m3_launches}; max |kernel - plain| {err:.3e} (1e-12) -- {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"path M wall: {wall:.1f} s (build {t_build - t_phase:.1f} s, M1 and M2 and the M3 launch "
+        f"{t_run - t_build:.1f} s); aim {M_WALL_AIM:.0f} s -- {card}")
+    return [{"name": "vertical_flux_divergence", "route": "cuda", "source": "src/repro_torch/core/codegen_cuda.py",
+             "replaces": "src/repro/core/codegen_pallas.py:123", "launches": m3_launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "scratch_bytes": scratch, "k_sweeps": sched["parallel_sweeps"],
+             "launches_path_m": sum(launched.values()) + m3_launches}]
+
+
 def paths_a_to_g():
     """Phases 1-5 for paths A-G. Returns the kernels' report rows, the phases'
     walls and the card's name and power limit; what the paths held is freed
@@ -2047,10 +2197,8 @@ def paths_a_to_g():
     kernels += [s.kernel for s in S_sync.values()]
     kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
     kernels += variants + dist_kernels + [k for ks in path_l_kernels().values() for k in ks]
-    for k in kernels:
-        k.start_build()
-    for k in kernels:
-        k.finish_build()
+    kernels += path_m_build()["kernels"]
+    build_all(kernels)
     walls.mark("nvcc")
     log(f"build: {len(S) + len(corpus) + len(S_sync) + 2 * len(groups) + 1} stencils (with the climate "
         f"program's {len(groups)} group kernels, their member-batched variants and the {MEMBERS}-member "
@@ -3613,6 +3761,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     report += path_l(card, report)
     walls.mark("path L")
+    # path M: the stencil toolchain's matrices, its kernels built in the nvcc phase
+    report += path_m(card)
+    walls.mark("path M")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -33,12 +33,16 @@ I, then J).  Every field is read through the strides it is handed, so a
 C-order field gives the same answer, with a warp's accesses ``nk`` elements
 apart.
 
-Limits, checked when the source is generated: a written API field may not be
-read at a horizontal offset, or from a stage whose compute extent reaches
-into a neighbouring tile (``GTScriptSemanticError``, as the reference); K-axis
-outputs raise ``NotImplementedError`` (as the reference); a field written in
-a PARALLEL interval may not be read there at a vertical offset, because
-plane-by-plane order would differ from the reference's stage-by-stage order.
+A PARALLEL interval whose stages read, at a vertical offset, a field that
+another of its stages writes runs as several consecutive k-sweeps over its k
+range (``_k_sweeps``), so that plane-by-plane order inside each sweep gives
+the reference's stage-by-stage order; a temporary that crosses sweeps is
+``full`` scratch, and a written API field is the block's own column.
+
+Limits, checked when the source is generated, are the reference's: a written
+API field may not be read at a horizontal offset, or from a stage whose
+compute extent reaches into a neighbouring tile (``GTScriptSemanticError``);
+K-axis outputs raise ``NotImplementedError``.
 
 The generated Python module exports ``CUDA_SOURCE``, ``SCHEDULE`` (the keys of
 the Pallas module's) and ``_smem_bytes(bi, bj)``.  :class:`CudaKernel`
@@ -67,7 +71,7 @@ from .codegen_common import Emitter, bound_expr, multistage_plan
 from .gtscript import GTScriptSemanticError
 
 # bump on any change to the generated source: it is part of the fingerprint
-CODEGEN_VERSION = "cuda-2"
+CODEGEN_VERSION = "cuda-3"
 DEFAULT_BLOCK: Tuple[int, int] = (8, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -161,15 +165,10 @@ def _masked_writes(impl: ir.StencilImplementation) -> Set[str]:
     return masked
 
 
-def _written_k_coverage_full(impl: ir.StencilImplementation, name: str) -> bool:
-    intervals = [
-        itv.interval
-        for ms in impl.multi_stages
-        for itv in ms.intervals
-        if any(name in st.writes for st in itv.stages)
-    ]
+def _covers(intervals: List[ir.VerticalInterval]) -> bool:
+    """Whether ``intervals`` together cover every level of the domain."""
     if not intervals:
-        return True
+        return False
     ivs = sorted(intervals, key=lambda iv: iv.start.key())
     if ivs[0].start != ir.AxisBound(ir.LevelMarker.START, 0):
         return False
@@ -180,6 +179,16 @@ def _written_k_coverage_full(impl: ir.StencilImplementation, name: str) -> bool:
         if iv.end.key() > end.key():
             end = iv.end
     return end == ir.AxisBound(ir.LevelMarker.END, 0)
+
+
+def _written_k_coverage_full(impl: ir.StencilImplementation, name: str) -> bool:
+    intervals = [
+        itv.interval
+        for ms in impl.multi_stages
+        for itv in ms.intervals
+        if any(name in st.writes for st in itv.stages)
+    ]
+    return not intervals or _covers(intervals)
 
 
 def _schedule(impl: ir.StencilImplementation, carry_plans) -> Dict[str, Any]:
@@ -298,6 +307,63 @@ def _groups(itv: ir.MultiStageInterval) -> List[List[int]]:
     return groups
 
 
+def _k_sweeps(itv: ir.MultiStageInterval) -> List[List[int]]:
+    """The stages of a PARALLEL interval, cut into consecutive sweeps over
+    its k range, so that running each sweep plane by plane in ascending k
+    gives the reference's stage-by-stage order.  A sweep ends before a stage
+    that reads a field at a plane above, where an earlier stage of the sweep
+    writes it (that write would come later), or that writes a field an
+    earlier stage of the sweep read at a plane below (that read would see
+    the new value).  Inside one stage both orders agree."""
+    sweeps: List[List[int]] = []
+    cur: List[int] = []
+    written: Set[str] = set()
+    read_below: Set[str] = set()
+    for si, st in enumerate(itv.stages):
+        reads = [(n, off[2]) for stmt in st.stmts for n, off in ir.stmt_reads(stmt)]
+        if cur and ({n for n, dk in reads if dk > 0} & written or set(st.writes) & read_below):
+            sweeps.append(cur)
+            cur, written, read_below = [], set(), set()
+        cur.append(si)
+        written |= set(st.writes)
+        read_below |= {n for n, dk in reads if dk < 0}
+    if cur:
+        sweeps.append(cur)
+    return sweeps
+
+
+def _read_before_written(impl: ir.StencilImplementation, name: str) -> bool:
+    """Whether a read of ``name`` may find a plane inside the domain that the
+    kernel's order has not written yet, where the zero-initialized temporary
+    reads 0 (a PARALLEL read one plane up, in an interval that runs before
+    the one writing that plane).  A read is safe where the intervals before
+    its own write every plane; or where it reads its own plane after an
+    earlier stage of its interval wrote it; or where it reads a plane its
+    sweep has passed, its interval writes the field and, with the intervals
+    before it, every plane.  The frontend refuses the other orders (a
+    temporary read before its definition, or ahead of a sequential sweep
+    that writes it)."""
+    before: List[ir.VerticalInterval] = []
+    for ms in impl.multi_stages:
+        step = -1 if ms.order == ir.IterationOrder.BACKWARD else 1
+        for itv in ms.intervals:
+            writers = [si for si, st in enumerate(itv.stages) if name in st.writes]
+            for si, st in enumerate(itv.stages):
+                for stmt in st.stmts:
+                    for n, off in ir.stmt_reads(stmt):
+                        if n != name or _covers(before):
+                            continue
+                        dk = off[2] * step
+                        if dk == 0 and writers and writers[0] < si:
+                            continue
+                        if dk < 0 and writers and _covers(before + [itv.interval]):
+                            continue
+                        return True
+            if writers:
+                before.append(itv.interval)
+    return False
+
+
 def _contiguous(ms: ir.MultiStage) -> bool:
     ivs = [itv.interval for itv in ms.intervals]
     if ms.order == ir.IterationOrder.BACKWARD:
@@ -332,7 +398,20 @@ class _Plan:
     """Everything the emitter needs: storage classes, staged inputs, smem."""
 
     def __init__(self, impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True):
-        self.impl = impl
+        # each PARALLEL interval cut into its k-sweeps: from here on an
+        # "interval" is one sweep, run after the one before it
+        self.sweeps: Dict[int, List[int]] = {}
+        multi_stages = []
+        for mi, ms in enumerate(impl.multi_stages):
+            if ms.order != ir.IterationOrder.PARALLEL:
+                multi_stages.append(ms)
+                continue
+            cut = [[ir.MultiStageInterval(itv.interval, tuple(itv.stages[si] for si in sweep))
+                    for sweep in _k_sweeps(itv)] for itv in ms.intervals]
+            if any(len(c) > 1 for c in cut):
+                self.sweeps[mi] = [len(c) for c in cut]
+            multi_stages.append(ir.MultiStage(ms.order, tuple(x for c in cut for x in c)))
+        self.impl = impl = dataclasses.replace(impl, multi_stages=tuple(multi_stages))
         self.bi, self.bj = int(block[0]), int(block[1])
         if self.bi <= 0 or self.bj <= 0 or self.bi * self.bj > 1024:
             raise ValueError(f"cuda backend: block {block} must have 1..1024 threads")
@@ -346,7 +425,6 @@ class _Plan:
         }
         self.written = set(impl.written_api_fields())
         self._check_api()
-        self._check_parallel_vertical()
         self.temps = self._classify_temps()
         self.staged = self._staged_inputs()
         # staged planes double-buffered and filled by cp.async (4- and 8-byte elements)
@@ -390,21 +468,6 @@ class _Plan:
                         "write; stage the value through a temporary instead"
                     )
 
-    def _check_parallel_vertical(self) -> None:
-        for mi, ms in enumerate(self.impl.multi_stages):
-            if ms.order != ir.IterationOrder.PARALLEL:
-                continue
-            for ii, _itv in enumerate(ms.intervals):
-                here = [(n, a) for n, lst in self.acc.items() for a in lst if (a.mi, a.ii) == (mi, ii)]
-                written = {n for n, a in here if a.write}
-                for n, a in here:
-                    if not a.write and n in written and a.offset[2] != 0:
-                        raise GTScriptSemanticError(
-                            f"cuda backend: {n!r} is written and read at vertical offset "
-                            f"{a.offset[2]} inside one PARALLEL interval (multi-stage {mi}); the "
-                            "plane-by-plane schedule would not reproduce stage-by-stage order"
-                        )
-
     # -- storage classes ------------------------------------------------------
 
     def _classify_temps(self) -> Dict[str, _Temp]:
@@ -440,7 +503,8 @@ class _Plan:
                 dks = [a.offset[2] for a in accs] or [0]
                 temps[n] = _Temp(n, "full", ct, isz, ext,
                                  k_lo=max(0, -min(dks)), k_hi=max(0, max(dks)), masked=masked,
-                                 zero_all=masked or not _written_k_coverage_full(impl, n))
+                                 zero_all=masked or not _written_k_coverage_full(impl, n)
+                                 or _read_before_written(impl, n))
         return temps
 
     def _staged_inputs(self) -> Dict[Tuple[int, int], List[Tuple[str, int]]]:
@@ -671,6 +735,7 @@ def _close_region_loop(em: Emitter) -> None:
 def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True,
               member_scalars: Optional[Tuple[str, ...]] = None):
     plan = _Plan(impl, block, async_staging)
+    impl = plan.impl
     pr = _CPrinter(plan)
     kname = _cname(impl.name)
     float_dt = next((f.dtype for f in impl.api_fields if f.dtype.startswith("float")), "float64")
@@ -976,6 +1041,7 @@ def generate_cuda_module_source(
         temporaries={t.name: t.kind for t in plan.temps.values()},
         staged_inputs=sorted({f"{n}[k{dk:+d}]" for lst in plan.staged.values() for n, dk in lst}),
         async_staging=plan.async_staging,
+        parallel_sweeps=dict(plan.sweeps),
     )
     em = Emitter()
     em.line(f'"""Auto-generated by repro_torch.core — stencil {impl.name!r}, backend \'cuda\'."""')

@@ -168,8 +168,8 @@ def stencil(
     Extra ``backend_opts`` configure the optimization pass pipeline
     (``opt_level=0..3``, ``disable_passes=(...)``, ``enable_passes=(...)`` —
     see ``repro_torch.core.passes``) and backend codegen.  ``cuda`` only:
-    ``block=(bi, bj)`` pins the thread-block tile.  ``autotune=True`` raises
-    ``NotImplementedError``: the tile autotuner is not ported yet.
+    ``block=(bi, bj)`` pins the thread-block tile.  ``autotune=True`` lets the
+    tile autotuner (``core/autotune.py``) pick it at the first launch.
     """
 
     def _impl(func: Callable):

@@ -173,7 +173,7 @@ def test_inconsistent_calls_raise(steps, case, match):
         ens(**fields, **sc)
 
 
-def test_distribute_is_not_ported_yet(steps, tmp_path):
+def test_distribute_on_one_rank_matches_the_ensemble(steps, tmp_path):
     """``distribute()`` is ported: on a one-rank 1 x 1 x 1 mesh the
     distributed ensemble's step on the interiors (all N members on the rank,
     u and v shared) equals the single-rank ensemble on zero-haloed storages

@@ -148,9 +148,12 @@ def test_port_sources_import_neither_jax_nor_reference():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [f.name for f in examples] == ["climate_model_torch.py", "quickstart_torch.py",
                                           "serve_forecast_torch.py", "train_lm_torch.py"]
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
-    assert len(files) > 20
-    scanned = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1 - len(examples)]}
+    sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    # and what the card runs from tests/: the shared stencil cases and their gpu tests
+    card_tests = [ROOT / "tests" / "torch_stencil_cases.py", ROOT / "tests" / "test_torch_dsl_gpu.py"]
+    files = sources + [ROOT / "chip_smoke.py"] + examples + card_tests
+    assert len(sources) > 20
+    scanned = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in sources}
     assert {"core/autotune.py", "obs/export.py", "obs/flight.py", "obs/metrics.py", "obs/slo.py",
             "runtime/supervise.py", "serving/engine.py", "serving/server.py", "serving/client.py",
             "launch/serve.py", "optim/adamw.py", "optim/clip.py", "optim/schedule.py", "data/pipeline.py",

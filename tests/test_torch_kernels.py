@@ -11,6 +11,7 @@ import pytest
 
 pytest.importorskip("torch", reason="the torch port's tests need PyTorch")
 
+import json
 import re
 
 import jax.numpy as jnp
@@ -18,19 +19,21 @@ import numpy as np
 import torch
 
 import corpus_gen
+import torch_stencil_cases as stencil_cases
 from repro.core.stencil import build_from_definition as r_build
 from repro.kernels.hdiff.ops import hdiff as r_hdiff_op
 from repro.kernels.hdiff.ref import hdiff_ref as r_hdiff_ref
 from repro.kernels.vadv.ops import vadv as r_vadv_op
 from repro.kernels.vadv.ref import vadv_ref as r_vadv_ref
-from repro_torch.core import codegen_cuda, gtscript, ir_json
-from repro_torch.core.gtscript import IJK, K, PARALLEL, Field, GTScriptSemanticError, computation, interval
+from repro_torch.core import analysis, codegen_cuda, gtscript, ir, ir_json, passes
+from repro_torch.core.gtscript import K, PARALLEL, Field, GTScriptSemanticError, computation, interval
 from repro_torch.core.stencil import build_from_definition as t_build
 from repro_torch.kernels.hdiff.ops import hdiff
 from repro_torch.kernels.hdiff.ref import hdiff_ref
 from repro_torch.kernels.vadv.ops import vadv
 from repro_torch.kernels.vadv.ref import vadv_ref
 from repro_torch.stencils import forecast, hdiff as t_hdiff, vadv as t_vadv, vintg as t_vintg
+from torch_mirror import run_case
 
 
 def _tridiagonal(shape, seed, off=0.1, diag=2.0):
@@ -176,20 +179,118 @@ def k_out_defs(a: Field[np.float64], out: Field[np.float64, K]):
         out = a[0, 0, 0]
 
 
-def temp_vertical_defs(a: Field[np.float64], out: Field[np.float64, IJK]):
-    with computation(PARALLEL), interval(0, -1):
-        t = a[0, 0, 0] * 2.0
-        out = t[0, 0, 1]
-
-
 def test_k_axis_output_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="K-field output"):
         gtscript.stencil("cuda")(k_out_defs)
 
 
-def test_vertical_read_of_a_field_written_in_the_same_parallel_interval_is_rejected():
-    with pytest.raises(GTScriptSemanticError, match="plane-by-plane"):
-        gtscript.stencil("cuda", opt_level=0)(temp_vertical_defs)
+def test_vertical_read_of_a_field_written_in_the_same_parallel_interval_builds():
+    """``t`` is written and read one plane up inside one PARALLEL interval:
+    the kernel runs the interval as two k-sweeps, ``t`` crosses them in full
+    per-block scratch, and the plain module holds the reference's oracle."""
+    for lvl in (0, 3):
+        st = gtscript.stencil("cuda", opt_level=lvl)(stencil_cases.temp_vertical_defs)
+        module = st.kernel.module
+        assert module.SCHEDULE["parallel_sweeps"] == {0: [2]}
+        assert module.SCHEDULE["temporaries"] == {"t": "full"}
+        assert [name for name, *_ in module.SCRATCH] == ["t"]
+    run_case(stencil_cases.BY_NAME["temp_vertical"])
+
+
+@pytest.mark.parametrize("case, zeroed", [
+    ("interval_merging_vertical", {"t": True}),  # read a plane up before the later interval writes it
+    ("temp_above_and_below", {"t": False}),  # the first sweep writes every plane
+    ("temp_vertical", {"t": True}),  # the top plane is never written
+    ("vertical_flux_divergence", {"wf": False, "flux": True}),  # flux leaves plane 0
+])
+def test_full_temporaries_are_zeroed_where_a_plane_is_read_before_written(case, zeroed):
+    """The kernel zeroes a full temporary's scratch where its order may read
+    a plane of the domain no stage has written yet (the reference's
+    temporary reads 0 there), and only there."""
+    st = gtscript.stencil("cuda", block=stencil_cases.BLOCK)(stencil_cases.BY_NAME[case].defs)
+    plan = codegen_cuda._Plan(st.implementation_ir, stencil_cases.BLOCK)
+    assert {n: t.zero_all for n, t in plan.temps.items() if t.kind == "full"} == zeroed
+
+
+def _reads_an_unwritten_plane(impl, name, nk):
+    """The kernel's order run level by level at ``nk``: whether a read of
+    ``name`` finds a plane of the domain that no stage has written yet."""
+    written = set()
+    for ms in impl.multi_stages:
+        for itv in ms.intervals:
+            k0, k1 = itv.interval.resolve(nk)
+            levels = range(k1 - 1, k0 - 1, -1) if ms.order == ir.IterationOrder.BACKWARD else range(k0, k1)
+            for k in levels:
+                for st in itv.stages:
+                    for stmt in st.stmts:
+                        if any(n == name and 0 <= k + off[2] < nk and k + off[2] not in written
+                               for n, off in ir.stmt_reads(stmt)):
+                            return True
+                        if name in ir.stmt_writes(stmt):
+                            written.add(k)
+    return False
+
+
+def _vertical_program(rng, name):
+    """A random definition (the reference's IR): one to three PARALLEL,
+    FORWARD or BACKWARD computations, each split at the column's ends, whose
+    statements read the temporaries one plane up and down; half of them
+    start by writing both temporaries over the whole column."""
+    from repro.core import ir as r_ir
+
+    s, e = r_ir.LevelMarker.START, r_ir.LevelMarker.END
+    splits = [[(s, 0, e, 0)], [(s, 0, s, 1), (s, 1, e, 0)], [(s, 0, e, -1), (e, -1, e, 0)],
+              [(s, 0, s, 1), (s, 1, e, -1), (e, -1, e, 0)], [(s, 1, e, 0)], [(s, 0, e, -1)]]
+    orders = (r_ir.IterationOrder.PARALLEL, r_ir.IterationOrder.FORWARD, r_ir.IterationOrder.BACKWARD)
+    leaves = [corpus_gen.Leaf("in1", h=1, dk=(-1, 0, 1)), corpus_gen.Leaf("t1", h=1, dk=(-1, 0, 1)),
+              corpus_gen.Leaf("t2", h=0, dk=(-1, 0, 1))]
+    comps = []
+    for _ in range(rng.integers(1, 4)):
+        order = orders[rng.integers(3)]
+        ivs = splits[rng.integers(len(splits))]
+        blocks = [corpus_gen._interval(r_ir.AxisBound(a, ao), r_ir.AxisBound(b, bo),
+                                       [corpus_gen._assign(("t1", "t2", "out1")[rng.integers(3)],
+                                                           corpus_gen.gen_expr(rng, leaves, 2))
+                                        for _ in range(rng.integers(1, 4))])
+                  for a, ao, b, bo in (ivs[::-1] if order == r_ir.IterationOrder.BACKWARD else ivs)]
+        comps.append(r_ir.ComputationBlock(order, tuple(blocks)))
+    if rng.random() < 0.5:
+        init = [corpus_gen._assign(t, corpus_gen.gen_expr(rng, leaves[:1], 1)) for t in ("t1", "t2")]
+        comps.insert(0, r_ir.ComputationBlock(r_ir.IterationOrder.PARALLEL, (
+            corpus_gen._interval(r_ir.AxisBound(s, 0), r_ir.AxisBound(e, 0), init),)))
+    return corpus_gen._definition(name, comps)
+
+
+def test_full_temporaries_are_zeroed_wherever_the_kernel_order_reads_an_unwritten_plane():
+    """The zeroing rule against the kernel's order run level by level at
+    every ``nk`` up to 12, over the cases and random programs that read
+    temporaries one plane up and down in every iteration order: no full
+    temporary that the order reads before writing goes unzeroed."""
+    impls = [gtscript.stencil("cuda", externals=dict(c.externals), opt_level=lvl)(c.defs).implementation_ir
+             for c in stencil_cases.CASES for lvl in (0, 3)]
+    rng = np.random.default_rng(22)
+    for seed in range(3000):
+        d = _vertical_program(rng, f"v{seed}")
+        try:
+            impl = analysis.analyze(ir_json.definition_from_json(json.loads(json.dumps(
+                corpus_gen.definition_to_json(d)))))
+        except GTScriptSemanticError:
+            continue  # a temporary read before its definition, or ahead of its sweep
+        impls += [passes.run_pipeline(impl, opt_level=lvl)[0] for lvl in (0, 3)]
+    read_unwritten = checked = 0
+    for impl in impls:
+        try:
+            plan = codegen_cuda._Plan(impl, stencil_cases.BLOCK)
+        except GTScriptSemanticError:
+            continue
+        for n, t in plan.temps.items():
+            if t.kind == "full":
+                truth = any(_reads_an_unwritten_plane(plan.impl, n, nk)
+                            for nk in range(max(2, plan.impl.min_k_levels), 13))
+                assert t.zero_all or not truth, (impl.name, n)
+                read_unwritten += truth
+                checked += 1
+    assert read_unwritten >= 10 and checked >= 100
 
 
 _FLOAT_LITERAL = re.compile(r"(?<![\w.])(\d+\.\d*|\d*\.\d+|\d+[eE][-+]?\d+)([eE][-+]?\d+)?(?![\w.])")

@@ -276,7 +276,7 @@ def test_cross_group_temporary_allocated_on_the_fields_device():
     assert torch.equal(f["phi"].data, e["phi_new"].data)
 
 
-def test_distribute_is_not_ported_yet(tmp_path):
+def test_distribute_on_one_rank_matches_the_program(tmp_path):
     """``distribute()`` is ported: on a one-rank 1 x 1 mesh (axes of size 1
     exchange nothing, even periodic) 3 calls and ``iterate(3)`` of the
     distributed program on the interiors equal the program on zero-haloed
