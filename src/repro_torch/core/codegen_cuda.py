@@ -66,6 +66,8 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from repro_torch.obs import trace as otrace
+
 from . import analysis, ir
 from .codegen_common import Emitter, bound_expr, multistage_plan
 from .gtscript import GTScriptSemanticError
@@ -98,6 +100,9 @@ _KERNELS: weakref.WeakSet = weakref.WeakSet()
 # returns) still counts
 _LAUNCHES: Counter = Counter()
 
+# bytes of full scratch the launches wrote, by kernel key since the last reset
+_SCRATCH: Counter = Counter()
+
 
 def register_kernel(kernel) -> None:
     """Let ``reset_launch_counts()`` reach a ``CountedKernel``."""
@@ -119,6 +124,11 @@ class CountedKernel:
         _LAUNCHES[self.key] += int(value) - self._launches
         self._launches = int(value)
 
+    def count_launch(self, scratch_bytes: int = 0) -> None:
+        """One launch more, which wrote ``scratch_bytes`` of full scratch."""
+        self.launches += 1
+        _SCRATCH[self.key] += scratch_bytes
+
 
 def launch_counts() -> Dict[str, int]:
     """Launches by kernel key since the last reset, of live kernels and of
@@ -126,12 +136,22 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def scratch_counts() -> Dict[str, int]:
+    """Bytes of full scratch the launches wrote, by kernel key since the last
+    reset: each launch counts its launcher's whole scratch, which the kernel
+    writes before it reads."""
+    return dict(_SCRATCH)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and every key's, to 0."""
+    """Set every kernel's launch count, and every key's launch and scratch
+    counts, to 0."""
     for k in list(_KERNELS):
         k.launches = 0
     for key in _LAUNCHES:
         _LAUNCHES[key] = 0
+    for key in _SCRATCH:
+        _SCRATCH[key] = 0
 
 
 def _ctype(dtype: str) -> str:
@@ -1312,14 +1332,17 @@ class CudaKernel(CountedKernel):
             args.append(ctypes.c_int(nm))
         fn = self._load()
         args.append(ctypes.c_void_p(stream.cuda_stream))
+        scratch_bytes = sum(buf.numel() * buf.element_size() for buf in scratch)
+        span_name = f"launch {self.key}"
 
         def _launch() -> None:
             if torch.cuda.current_stream(device) != stream:
                 raise RuntimeError(f"cuda backend: {self.key} was prepared for another stream")
-            rc = fn(*args)
+            with otrace.span(span_name):
+                rc = fn(*args)
             if rc != 0:
                 raise RuntimeError(f"cuda backend: launch of {self.key} failed with cudaError {rc}")
-            self.launches += 1
+            self.count_launch(scratch_bytes)
 
         _launch.scratch = scratch  # the buffers live as long as the launcher
         _launch.keep = keep

@@ -1,4 +1,4 @@
-"""Exporters: span buffer → Chrome-trace/Perfetto JSON, optional torch.profiler labels.
+"""Exporters: span buffer → Chrome-trace/Perfetto JSON.
 
 The span dicts produced by :mod:`repro_torch.obs.trace` convert to the Chrome
 Trace Event format (the JSON flavor Perfetto, ``chrome://tracing`` and
@@ -16,11 +16,11 @@ Trace Event format (the JSON flavor Perfetto, ``chrome://tracing`` and
 extras leg assert against; ``python -m repro_torch.obs.export TRACE.json``
 validates a captured file from the command line and prints a span census.
 
-:func:`torch_profiler_span` is the opt-in bridge to ``torch.profiler``: it
-opens a ``record_function`` range so serving dispatches show up inside a
-torch profile beside the card's kernels; on any profiler error it is a
-no-op — telemetry must never take the dispatch down.  (The reference
-package's ``repro/obs/export.py``, whose bridge is ``jax.profiler``.)
+:mod:`repro_torch.obs.trace` itself is the bridge to ``torch.profiler``:
+while a profiler records, every span also opens a ``record_function``
+range of its name, so a torch profile carries the port's spans beside the
+card's kernels with nothing armed here.  (The reference package's
+``repro/obs/export.py`` has an opt-in ``jax.profiler`` bridge instead.)
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import threading
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
@@ -152,61 +150,6 @@ def request_events(data: Dict[str, Any], trace_id: str) -> List[Dict[str, Any]]:
         if trace_id in args.get("trace_ids", ()) or args.get("request_id") == trace_id:
             out.append(ev)
     return out
-
-
-# ---------------------------------------------------------------------------
-# torch.profiler bridge (opt-in)
-# ---------------------------------------------------------------------------
-
-_record_function = None
-_probe_lock = threading.Lock()
-_probed = False
-
-
-def torch_profiler_available() -> bool:
-    """True when ``torch.profiler.record_function`` can be opened."""
-    global _record_function, _probed
-    if not _probed:
-        with _probe_lock:
-            if not _probed:
-                try:
-                    from torch.profiler import record_function as _rf  # noqa: PLC0415
-
-                    _record_function = _rf
-                except Exception:  # noqa: BLE001 — no profiler hook
-                    _record_function = None
-                _probed = True
-    return _record_function is not None
-
-
-@contextmanager
-def torch_profiler_span(name: str):
-    """Label the enclosed work in a ``torch.profiler`` trace
-    (``record_function``), so serving dispatches show up beside the card's
-    kernels in a profile; outside a profiling session the label costs one
-    host-side range.
-
-    Only the *annotation* is guarded: an exception raised by the wrapped
-    block must propagate with its original type/message (retry-with-bisect
-    keys off it), so the body is never re-yielded from an ``except`` branch —
-    that would turn every dispatch failure into contextlib's
-    ``RuntimeError("generator didn't stop after throw()")``.
-    """
-    ctx = None
-    if torch_profiler_available():
-        try:
-            ctx = _record_function(name)
-            ctx.__enter__()
-        except Exception:  # noqa: BLE001 — profiling must never fail the dispatch
-            ctx = None
-    try:
-        yield
-    finally:
-        if ctx is not None:
-            try:
-                ctx.__exit__(None, None, None)
-            except Exception:  # noqa: BLE001, S110 — annotation teardown is best-effort
-                pass
 
 
 def _census(events: Iterable[Dict[str, Any]]) -> Dict[str, int]:

@@ -32,6 +32,17 @@ Enable globally with ``REPRO_TRACE=1`` (capacity via
 locally/temporarily with :class:`capture` (used by the per-call
 ``exec_info={"trace": True}`` opt-in on stencils and programs).
 
+While a ``torch.profiler`` session records, every :meth:`Tracer.span`
+also opens a ``torch.profiler.record_function`` range of the same name, so
+the port's spans land in the profile as ``user_annotation`` events on the
+device trace's clock, beside the kernels they launch.  That holds whether
+the tracer itself is on or off: an off tracer hands out a span that only
+the profiler sees, and the ring buffer keeps nothing of it.  With no
+profiler recording, the off path stays one flag check and one read of
+``torch.autograd.profiler._is_profiler_enabled``.  Opening or closing the
+range never fails the wrapped work, and the body's exception propagates
+unchanged.
+
 Always-on production tracing rides head-based sampling
 (:mod:`repro_torch.obs.sampling`): ``REPRO_TRACE_SAMPLE=0.1`` /
 ``Tracer(sample_rate=0.1)`` drops spans whose trace ids all hash out, for
@@ -50,11 +61,37 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional
 
+import torch.autograd.profiler as _autograd_profiler
+
 from . import sampling as _sampling
 
 #: the ONE monotonic clock for spans, latencies, and deadlines (satellite:
 #: no mixed time.time/perf_counter arithmetic across engine/client/watchdog)
 monotonic = time.perf_counter
+
+#: opens a profiler range; a module attribute so a test can break it
+_record_function = _autograd_profiler.record_function
+
+
+def _annotate(name: str):
+    """A ``torch.profiler`` range named ``name``, opened, while a profiler
+    records; None otherwise, or where opening it fails."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    try:
+        rf = _record_function(name)
+        rf.__enter__()
+        return rf
+    except Exception:  # noqa: BLE001 — profiling must never fail the work it labels
+        return None
+
+
+def _close(rf) -> None:
+    if rf is not None:
+        try:
+            rf.__exit__(None, None, None)
+        except Exception:  # noqa: BLE001, S110 — closing the label is best-effort
+            pass
 
 
 class Span:
@@ -72,10 +109,13 @@ class Span:
         "events",
         "_tracer",
         "_token",
+        "_rf",
+        "_label",
     )
 
     def __init__(self, tracer: "Tracer", name: str, category: str, span_id: int,
-                 parent_id: Optional[int], trace_ids: List[str], attrs: Dict[str, Any]):
+                 parent_id: Optional[int], trace_ids: List[str], attrs: Dict[str, Any],
+                 label: Optional[str] = None):
         self.name = name
         self.category = category
         self.span_id = span_id
@@ -87,6 +127,8 @@ class Span:
         self.events: List[Dict[str, Any]] = []
         self._tracer = tracer
         self._token: Optional[contextvars.Token] = None
+        self._rf = None
+        self._label = label or name  # the profiler range's name
 
     def set(self, key: str, value: Any) -> None:
         self.attrs[key] = value
@@ -102,9 +144,12 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = self._tracer._current.set(self)
+        self._rf = _annotate(self._label)
         return self
 
     def __exit__(self, exc_type, exc, _tb) -> bool:
+        _close(self._rf)
+        self._rf = None
         if exc_type is not None:
             self.attrs["error"] = f"{exc_type.__name__}: {exc}"
         if self._token is not None:
@@ -153,6 +198,26 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+class _ProfiledSpan(_NoopSpan):
+    """A disabled tracer's span while a profiler records: the profiler's
+    range and nothing else (no clock read, nothing retained)."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self) -> "_ProfiledSpan":
+        self._rf = _annotate(self.name)
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        _close(self._rf)
+        self._rf = None
+        return False
+
+
 class Tracer:
     """Span recorder: ring-buffered retention, contextvar nesting."""
 
@@ -189,17 +254,19 @@ class Tracer:
 
     def span(self, name: str, *, category: str = "repro",
              trace_id: Optional[str] = None, trace_ids: Iterable[str] = (),
-             **attrs: Any):
-        """Open a span (use as a context manager).  Disabled → NOOP_SPAN.
-        Sampling: a span whose trace ids ALL hash out (none forced) is
-        NOOP too — id-free spans (compiles, windows) are always kept."""
+             profile_name: Optional[str] = None, **attrs: Any):
+        """Open a span (use as a context manager).  Disabled → NOOP_SPAN, or
+        while a profiler records a span only the profiler sees.  Sampling: a
+        span whose trace ids ALL hash out (none forced) is NOOP too — id-free
+        spans (compiles, windows) are always kept.  ``profile_name`` names
+        the profiler's range in place of ``name`` (the span keeps ``name``)."""
         if not self.enabled:
-            return NOOP_SPAN
+            return _ProfiledSpan(profile_name or name) if _autograd_profiler._is_profiler_enabled else NOOP_SPAN
         ids = [str(t) for t in trace_ids]
         if trace_id is not None and str(trace_id) not in ids:
             ids.insert(0, str(trace_id))
         if ids and not self.sampling.sampled(ids):
-            return NOOP_SPAN
+            return _ProfiledSpan(profile_name or name) if _autograd_profiler._is_profiler_enabled else NOOP_SPAN
         parent = self._current.get()
         return Span(
             self,
@@ -209,6 +276,7 @@ class Tracer:
             parent.span_id if parent is not None else None,
             ids,
             dict(attrs),
+            profile_name,
         )
 
     def event(self, name: str, *, category: str = "repro",

@@ -43,6 +43,7 @@ between them (``parallel.halo``).
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -800,20 +801,54 @@ class _Padded:
 
 
 class _StepTimer:
-    """Time of a run, and of its exchanges and group runs: CUDA events on the
-    card (recorded on the stream, read once at the end), else the host clock."""
+    """Time of a run, and of its phases: CUDA events recorded on the compute
+    stream on the card (read once at the end), else the host clock.
+
+    ``mark()`` takes a time; ``lap(kind)`` takes one and closes an interval
+    of ``kind`` from the last time taken, so laps in a row tile the time
+    between them.  ``exchange(hx)`` times one exchange of ``hx`` as laps of
+    its axes' ``pack``, ``wait`` and ``unpack`` (the wait from the end of the
+    pack to the end of the wait on the transfer, the peers' lateness
+    included), so its interval, from its first mark to its last lap, is
+    their sum.
+
+    ``steady_wait_seconds`` is the wait of the run's exchanges but its
+    first, scaled to all of them: the first absorbs the ranks' skew at the
+    run's start (each rank begins the run when its host gets there), the
+    later ones wait for the transfer and the peers' step."""
+
+    KINDS = ("exchange", "pack", "wait", "unpack", "groups", "pad", "release")
 
     def __init__(self, device: torch.device):
         self.card = device.type == "cuda"
-        self.spans: Dict[str, list] = {"exchange": [], "groups": []}
+        self.spans: Dict[str, list] = {k: [] for k in self.KINDS}
+        self.first_waits: Optional[int] = None  # the wait laps of the first exchange
         self.start = self.mark()
 
     def mark(self):
         if not self.card:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
+            self.last = time.perf_counter()
+        else:
+            self.last = torch.cuda.Event(enable_timing=True)
+            self.last.record()
+        return self.last
+
+    def lap(self, kind: str) -> None:
+        before = self.last
+        self.spans[kind].append((before, self.mark()))
+
+    @contextmanager
+    def exchange(self, hx: HaloExchange):
+        """Time the exchange ``hx`` runs inside: ``hx`` laps its phases."""
+        t0 = self.mark()
+        hx.lap = self.lap
+        try:
+            yield
+        finally:
+            hx.lap = None
+        self.spans["exchange"].append((t0, self.last))
+        if self.first_waits is None:
+            self.first_waits = len(self.spans["wait"])
 
     def result(self, steps: int) -> Dict[str, Any]:
         end = self.mark()
@@ -828,7 +863,21 @@ class _StepTimer:
         for kind, spans in self.spans.items():
             out[f"{kind}_seconds"] = sum(seconds(a, b) for a, b in spans)
             out[f"{kind}_count"] = len(spans)
+        n = len(self.spans["exchange"])
+        later = sum(seconds(a, b) for a, b in self.spans["wait"][self.first_waits:])
+        out["steady_wait_seconds"] = later * n / (n - 1) if n > 1 else out["wait_seconds"]
         return out
+
+
+def _timed_copy(dst: torch.Tensor, src: torch.Tensor, timer: Optional[_StepTimer], kind: str,
+                span: str) -> None:
+    """``dst.copy_(src)`` in a span, and a ``kind`` interval of ``timer``."""
+    if timer:
+        timer.mark()
+    with otrace.span(span):
+        dst.copy_(src)
+    if timer:
+        timer.lap(kind)
 
 
 class _RankStep:
@@ -880,7 +929,7 @@ class _RankStep:
         e = self._by_view.get(id(x))
         return e if e is not None and e.view is x else None
 
-    def _padded(self, vals: Dict[str, Any], b: str) -> _Padded:
+    def _padded(self, vals: Dict[str, Any], b: str, timer: Optional[_StepTimer] = None) -> _Padded:
         """The padded buffer that holds ``b``: the one it is bound to, else a
         free one with the interior copied in."""
         x = vals[b]
@@ -895,7 +944,7 @@ class _RankStep:
                         self.plan.depth, lead)
             self._pool.append(e)
             self._by_view[id(e.view)] = e
-        e.view.copy_(x)
+        _timed_copy(e.view, x, timer, "pad", "rank_step.pad")
         e.source = x
         vals[b] = e.view
         return e
@@ -925,25 +974,25 @@ class _RankStep:
             vals[b] = self._internal(b)
         for gi, run in enumerate(self.runs):
             for op in plan.halo.before_group(gi):
-                e = self._padded(vals, op.buffer)
-                t0 = timer.mark() if timer else None
-                self.exchange.fill(e.padded, op.halo, e.depth, e.lead)
-                if timer:
-                    timer.spans["exchange"].append((t0, timer.mark()))
+                e = self._padded(vals, op.buffer, timer)
+                with timer.exchange(self.exchange) if timer else nullcontext():
+                    self.exchange.fill(e.padded, op.halo, e.depth, e.lead)
             fields, origins = {}, {}
             for b in plan.group_buffers[gi]:
                 e = self._entry(vals[b])
                 fields[b], origins[b] = (e.padded, e.origin) if e is not None else (vals[b], (0, 0, 0))
-            t0 = timer.mark() if timer else None
+            if timer:
+                timer.mark()
             run(fields, scalars, plan.local_domain, origins)
             if timer:
-                timer.spans["groups"].append((t0, timer.mark()))
+                timer.lap("groups")
             written = {id(vals[b]) for b in plan.group_writes[gi]}
             for e in self._pool:  # a write ends the agreement of a copy and its source
                 if id(e.view) in written or (e.source is not None and id(e.source) in written):
                     e.source = None
 
-    def release(self, vals: Dict[str, Any], fields: Dict[str, Any]) -> Dict[str, Any]:
+    def release(self, vals: Dict[str, Any], fields: Dict[str, Any],
+                timer: Optional[_StepTimer] = None) -> Dict[str, Any]:
         """``vals`` with every caller's name bound to a caller's tensor again.
 
         A name held by a padded buffer gets back the tensor its interior was
@@ -969,7 +1018,7 @@ class _RankStep:
             t = free.pop(id(fields[n]), None)
             if t is None:
                 t = free.popitem()[1] if free else torch.empty_like(fields[n])
-            t.copy_(view)
+            _timed_copy(t, view, timer, "release", "rank_step.release")
             out[n] = t
         return out
 
@@ -1097,7 +1146,9 @@ def run_rank_steps(step: _RankStep, n: int, fields: Dict[str, Any], scalars: Dic
     """``n`` steps of ``step`` from ``fields``; the output binding after the
     last.  ``exec_info`` gets ``report`` under ``report_key`` (with
     ``iterated_steps`` for an ``iterate``), and ``rank_timings``: this rank's
-    time of the run, and of its exchanges and group runs."""
+    time of the run, of its exchanges (and their pack, wait and unpack), its
+    group runs and its copies into and out of the padded buffers, and the
+    run's bytes of full scratch (``codegen_cuda.scratch_counts``)."""
     plan = step.plan
     timer = None
     if exec_info is not None:
@@ -1105,18 +1156,22 @@ def run_rank_steps(step: _RankStep, n: int, fields: Dict[str, Any], scalars: Dic
         if iterate:
             exec_info[report_key]["iterated_steps"] = int(n)
         exec_info["run_start_time"] = time.perf_counter()
+        scratch0 = sum(codegen_cuda.scratch_counts().values())
         timer = _StepTimer(step.device)
     vals = dict(fields)
-    for i in range(n):
-        step.step(vals, scalars, timer)
-        if iterate or i + 1 < n:
-            vals.update({o: vals[b] for o, b in plan.outputs.items()})
-    vals = step.release(vals, fields)
+    with otrace.span("dist.iterate", category="program", steps=int(n)):
+        for i in range(n):
+            step.step(vals, scalars, timer)
+            if iterate or i + 1 < n:
+                vals.update({o: vals[b] for o, b in plan.outputs.items()})
+        vals = step.release(vals, fields, timer)
     if iterate:
         outs = {o: vals[o] for o in plan.outputs}
     else:
         outs = {o: vals[b] for o, b in plan.outputs.items()}
     if exec_info is not None:
-        exec_info["rank_timings"] = timer.result(n)
+        timings = timer.result(n)
+        timings["scratch_bytes"] = sum(codegen_cuda.scratch_counts().values()) - scratch0
+        exec_info["rank_timings"] = timings
         exec_info["run_end_time"] = time.perf_counter()
     return outs

@@ -89,7 +89,6 @@ import contextvars
 import itertools
 import json
 import math
-from contextlib import nullcontext
 from dataclasses import dataclass, field as dc_field
 from typing import Any, AsyncIterator, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -103,7 +102,6 @@ from repro_torch.ensemble import batch as ens_batch
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import slo as obs_slo
 from repro_torch.obs import trace as otrace
-from repro_torch.obs.export import torch_profiler_span
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.trace import monotonic
 from repro_torch.program.compile import ProgramObject
@@ -438,7 +436,6 @@ class ServingEngine:
         faults: Optional[FaultInjector] = None,
         tracer: Optional[otrace.Tracer] = None,
         metrics: Optional[obs_metrics.MetricsRegistry] = None,
-        torch_profile: bool = False,
         slos: Optional[Sequence[obs_slo.Objective]] = None,
         autoscaler: Optional[obs_slo.Autoscaler] = None,
         flight: Optional[FlightRecorder] = None,
@@ -469,7 +466,6 @@ class ServingEngine:
         # a fixed tracer wins; otherwise spans follow the contextvar routing
         # (capture() overrides, REPRO_TRACE/configure() for the process default)
         self._tracer = tracer
-        self.torch_profile = bool(torch_profile)
         # every operational counter lives in the registry; stats() is a view
         # of it, and the transport serves to_prometheus() on GET /metrics
         self.metrics = metrics if metrics is not None else obs_metrics.MetricsRegistry()
@@ -1112,20 +1108,16 @@ class ServingEngine:
                 return
             try:
                 t1 = monotonic()
-                profiled = (
-                    torch_profiler_span(f"serving.dispatch[{entry.name}]")
-                    if self.torch_profile
-                    else nullcontext()
-                )
                 with self._span(
                     "serving.dispatch",
+                    profile_name=f"serving.dispatch[{entry.name}]",
                     trace_ids=[r.request_id for r, _ in live],
                     batch_id=batch_id,
                     segment=si,
                     steps=seg,
                     members=m,
                     requests=len(live),
-                ), profiled:
+                ):
                     # run_in_executor does not propagate contextvars, so pin
                     # the resolved tracer (and the open dispatch span) into a
                     # context snapshot the executor thread runs under — the

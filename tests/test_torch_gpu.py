@@ -412,6 +412,25 @@ def test_climate_program_two_launches_a_step_and_matches_eager(card):
     torch.testing.assert_close(fp["phi"].data, fe["phi"].data, rtol=1e-10, atol=1e-10 * scale)
 
 
+def test_scratch_counter_counts_each_launchs_scratch(card):
+    """``scratch_counts()`` grows by the group kernel's ``scratch_bytes`` at
+    each launch, and each launch is a ``launch <key>`` span of a profile."""
+    prog = climate.build_program("cuda", _CDOM, name="gpu_scratch_step")
+    fp = _climate_fields(card)
+    sc = climate.DEFAULT_SCALARS
+    prog(**fp, **sc)
+    kernels = next(iter(prog._cache.values())).group_kernels
+    codegen_cuda.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        prog.iterate(3, **fp, **sc)
+    torch.cuda.synchronize()
+    scratch = codegen_cuda.scratch_counts()
+    for k in kernels:
+        assert scratch.get(k.key, 0) == 3 * k.scratch_bytes(_CDOM)
+    assert kernels[1].scratch_bytes(_CDOM) > 0  # group 1 keeps full temporaries
+    assert {f"launch {k.key}" for k in kernels} <= {e.name for e in prof.events()}
+
+
 def _member_inputs(device, members):
     rng = np.random.default_rng(11)
     shape = (_CDOM[0] + 2, _CDOM[1] + 2, _CDOM[2])

@@ -320,3 +320,22 @@ def test_module_launch_counts_keep_a_freed_kernels_launches():
     assert codegen_cuda.launch_counts().get(key, 0) == 2
     codegen_cuda.reset_launch_counts()
     assert codegen_cuda.launch_counts().get(key, 0) == 0
+
+
+def test_reset_launch_counts_clears_the_scratch_counts():
+    """A launch adds its launcher's scratch bytes to ``scratch_counts()`` by
+    key; ``reset_launch_counts()`` clears them with the launches."""
+
+    class StandIn(codegen_cuda.CountedKernel):
+        key = "k_stand_in"
+
+    k = StandIn()
+    codegen_cuda.register_kernel(k)
+    codegen_cuda.reset_launch_counts()
+    k.count_launch(1024)
+    k.count_launch(1024)
+    k.count_launch()  # a launch with no full scratch
+    assert codegen_cuda.scratch_counts()["k_stand_in"] == 2048
+    assert codegen_cuda.launch_counts()["k_stand_in"] == 3 == k.launches
+    codegen_cuda.reset_launch_counts()
+    assert codegen_cuda.scratch_counts()["k_stand_in"] == 0 and k.launches == 0

@@ -471,52 +471,112 @@ def test_export_cli_exit_codes(tmp_path, capsys):
     assert obs_export.main(["--bogus-flag", str(good)]) == 2
 
 
-def test_torch_profiler_span_never_raises():
-    with obs_export.torch_profiler_span("unit-test"):
-        x = 1 + 1
-    assert x == 2
+class _Boom(RuntimeError):
+    pass
 
 
-def test_torch_profiler_span_propagates_body_exception():
-    """The wrapped block's exception must surface with its original
-    type/message — retry-with-bisect keys off it, so masking it behind
-    contextlib's 'generator didn't stop after throw()' feeds the safety
-    path a bogus error."""
+def _profiler_case(case, tracer, monkeypatch):
+    if case == "never_raises":
+        with tracer.span("unit-test"):
+            x = 1 + 1
+        assert x == 2
+    elif case == "propagates_body_exception":
+        # the wrapped block's exception must surface with its original
+        # type/message: retry-with-bisect keys off it
+        with pytest.raises(_Boom, match="original dispatch failure"):
+            with tracer.span("unit-test"):
+                raise _Boom("original dispatch failure")
+    elif case == "survives_broken_annotation":
+        # a record_function that blows up on entry must neither fail the
+        # work nor swallow the body's own exception
+        def _broken_record_function(name):
+            raise OSError("profiler backend unavailable")
 
-    class _Boom(RuntimeError):
-        pass
+        monkeypatch.setattr(otrace, "_record_function", _broken_record_function)
+        with tracer.span("unit-test"):
+            x = 1 + 1
+        assert x == 2
+        with pytest.raises(ValueError, match="body failure"):
+            with tracer.span("unit-test"):
+                raise ValueError("body failure")
+    else:  # labels_a_profile: the span is a record_function range the profile carries by name
+        import torch
 
-    with pytest.raises(_Boom, match="original dispatch failure"):
-        with obs_export.torch_profiler_span("unit-test"):
-            raise _Boom("original dispatch failure")
-
-
-def test_torch_profiler_span_survives_broken_annotation(monkeypatch):
-    """A profiler whose record_function blows up on entry must neither fail
-    the dispatch nor swallow the body's own exception."""
-
-    def _broken_record_function(name):
-        raise OSError("profiler backend unavailable")
-
-    monkeypatch.setattr(obs_export, "_record_function", _broken_record_function)
-    monkeypatch.setattr(obs_export, "_probed", True)
-    with obs_export.torch_profiler_span("unit-test"):
-        x = 1 + 1
-    assert x == 2
-    with pytest.raises(ValueError, match="body failure"):
-        with obs_export.torch_profiler_span("unit-test"):
-            raise ValueError("body failure")
+        with tracer.span("serving.dispatch", profile_name="serving.dispatch[unit]"):
+            torch.ones(4).sum()
+        assert all(s["name"] == "serving.dispatch" for s in tracer.snapshot())
 
 
-def test_torch_profiler_span_labels_a_profile():
-    """Inside a torch.profiler session the span is a record_function range
-    the profile's events carry by name."""
+@pytest.mark.parametrize(
+    "case", ["never_raises", "propagates_body_exception", "survives_broken_annotation", "labels_a_profile"]
+)
+def test_profiler_bridge(case, monkeypatch):
+    """While a torch.profiler session records, every span, of an enabled
+    tracer or a disabled one, is also a record_function range of its name;
+    the range never fails the work, and only the enabled tracer keeps the
+    span."""
     import torch
 
+    for enabled in (False, True):
+        tr = otrace.Tracer(enabled=enabled)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            _profiler_case(case, tr, monkeypatch)
+        names = {e.name for e in prof.events()}
+        if case == "labels_a_profile":
+            assert "serving.dispatch[unit]" in names
+        elif case != "survives_broken_annotation":
+            assert "unit-test" in names
+        assert (len(tr) >= 1) if enabled else (len(tr) == 0)
+        monkeypatch.undo()
+
+
+def test_disabled_span_opens_no_profiler_range(monkeypatch):
+    """With no profiler recording, a disabled tracer's span is NOOP_SPAN and
+    opens no record_function, within the disabled path's 100k-span bound."""
+    opened = []
+    monkeypatch.setattr(otrace, "_record_function", lambda name: opened.append(name))
+    tr = otrace.Tracer(enabled=False)
+    assert otrace.span("program.iterate") is otrace.NOOP_SPAN
+    n = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tr.span("launch k_hot"):
+            pass
+    dt = time.perf_counter() - t0
+    assert tr.span("launch k_hot") is otrace.NOOP_SPAN
+    assert opened == [] and len(tr) == 0
+    assert dt < 1.0, f"{n} disabled spans took {dt:.3f}s"
+
+
+def test_profiled_spans_are_user_annotations(tmp_path):
+    """Under torch.profiler on the CPU, a disabled tracer's spans land in the
+    exported trace as user_annotation events, and the buffer keeps nothing."""
+    import torch
+
+    from repro_torch.core import storage
+    from repro_torch.stencils import climate
+
+    from repro_torch.ensemble import Ensemble
+
+    dom = (6, 5, 4)
+    prog = climate.build_program("torch", dom)
+
+    def fields(members=None):
+        return {n: storage.storage_for_domain(dom, (3, 3, 0), backend="torch", device="cpu",
+                                              members=None if n in ("u", "v", "w") else members)
+                for n in climate.FIELD_NAMES}
+
+    tr = otrace.get_tracer()
+    assert not tr.enabled
+    before = len(tr)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with obs_export.torch_profiler_span("serving.dispatch[unit]"):
-            torch.ones(4).sum()
-    assert "serving.dispatch[unit]" in {e.name for e in prof.events()}
+        prog.iterate(2, **fields(), **climate.DEFAULT_SCALARS)
+        Ensemble(prog, 2).iterate(2, **fields(2), **climate.DEFAULT_SCALARS)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    annotations = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"program.iterate", "ensemble.iterate"} <= annotations
+    assert len(tr) == before
 
 
 # ---------------------------------------------------------------------------

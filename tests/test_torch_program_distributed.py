@@ -264,6 +264,85 @@ def test_distributed_program_reports_rank_timings(runs):
     assert 0 < t["exchange_seconds"] + t["groups_seconds"] <= t["seconds"]
 
 
+def _tiles(t):
+    return abs(t["pack_seconds"] + t["wait_seconds"] + t["unpack_seconds"] - t["exchange_seconds"]) <= 1e-9
+
+
+def test_rank_timings_split_the_exchange(runs):
+    """Pack, wait and unpack tile each exchange on the host clock, and every
+    phase counts as the plan predicts: 2 exchanges a step (phi, phi_star),
+    each a pack, a wait and an unpack on both axes, since every rank of
+    (4, 2) has a neighbour on each.  One call copies phi and phi_star into
+    padded buffers and writes neither after, so nothing is copied back; an
+    iterate copies a third (the rotation binds phi to a buffer the padded
+    phi_new does not hold), and hands back the 3 names bound to padded
+    buffers, each written since its copy."""
+    port, _ref, _plans, _inputs = runs
+    one = port["timings"]
+    assert _tiles(one)
+    assert (one["exchange_count"], one["pack_count"], one["wait_count"], one["unpack_count"]) == (2, 4, 4, 4)
+    assert (one["pad_count"], one["release_count"]) == (2, 0)
+    assert one["scratch_bytes"] == 0  # CPU tensors launch nothing
+    assert 0 < one["steady_wait_seconds"]
+    for t in port["iterate_timings"]:
+        assert t["steps"] == NT and _tiles(t)
+        assert t["exchange_count"] == 2 * NT
+        assert t["pack_count"] == t["wait_count"] == t["unpack_count"] == 4 * NT
+        assert (t["pad_count"], t["release_count"]) == (3, 3)
+        assert t["pad_seconds"] > 0 and t["release_seconds"] > 0
+
+
+def test_steady_wait_leaves_out_the_runs_first_exchange(monkeypatch):
+    """``steady_wait_seconds``: the waits of every exchange but the first,
+    scaled to all of them; the first's long wait (the ranks' skew at the
+    run's start) stays in ``wait_seconds`` alone."""
+    from repro_torch.program import compile as prog_compile
+
+    now = [0.0]
+    monkeypatch.setattr(prog_compile.time, "perf_counter", lambda: now[0])
+    timer = prog_compile._StepTimer(torch.device("cpu"))
+
+    class Exchange:
+        lap = None
+
+    hx = Exchange()
+    for wait in (50.0, 2.0, 2.0, 2.0):
+        with timer.exchange(hx):
+            for _axis in range(2):
+                for phase, ticks in (("pack", 1.0), ("wait", wait), ("unpack", 1.0)):
+                    now[0] += ticks
+                    hx.lap(phase)
+        assert hx.lap is None
+    t = timer.result(2)
+    assert (t["exchange_count"], t["wait_count"]) == (4, 8)
+    assert t["wait_seconds"] == 2 * 50 + 6 * 2
+    assert t["steady_wait_seconds"] == 6 * 2 * 4 / 3
+    assert t["pack_seconds"] + t["wait_seconds"] + t["unpack_seconds"] == t["exchange_seconds"] == 128
+
+
+def test_message_bytes_are_the_plans_stripes(runs):
+    """send_bytes and recv_bytes: each planned exchange's H-deep stripes, an
+    i stripe (H x nj x nk) a neighbour along "data" and a j stripe of the
+    i-padded rows ((ni + 2H) x H x nk) a neighbour along "model"."""
+    port, _ref, _plans, _inputs = runs
+    ni, nj = NI // 4, NJ // 2
+    halos = [op["halo"] for op in port["iterate_report"]["halo_plan"]["ops"]]
+    for (ci, cj), msgs in zip(port["coords"], port["iterate_messages"]):
+        n_i, n_j = (ci > 0) + (ci < 3), (cj > 0) + (cj < 1)
+        want = NT * sum(8 * NK * h * (n_i * nj + n_j * (ni + 2 * h)) for h in halos)
+        assert msgs["send_bytes"] == msgs["recv_bytes"] == want
+        assert msgs["send"] == msgs["recv"] == NT * len(halos) * (n_i + n_j)
+
+
+def test_profiled_spans_of_the_distributed_step(runs):
+    """Under torch.profiler, with the tracer off, the rank step's and the
+    exchange's spans are user annotations of the profile."""
+    port, _ref, _plans, _inputs = runs
+    want = {"dist.iterate", "rank_step.pad", "rank_step.release", "halo.exchange", "halo.pack",
+            "halo.post", "halo.wait", "halo.unpack"}
+    assert want <= set(port["profiled"])
+
+
 # ---------------------------------------------------------------------------
 # The planner, in process: the port's copy against the reference
 # ---------------------------------------------------------------------------

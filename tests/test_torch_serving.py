@@ -93,6 +93,15 @@ def test_single_request_bit_identical(step, templates, engine):
         assert np.abs(res.step_fields[t]["phi"] - ref).max() == 0.0
 
 
+def test_dispatch_labels_a_profile_with_its_program(engine):
+    """Under torch.profiler a dispatch is a range named for the program it
+    runs, whatever the tracer's state; the span itself stays
+    ``serving.dispatch``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        drive(engine, [RequestSpec("serve_step", {"phi": request_state(DOM, seed=2)}, steps=2)])
+    assert "serving.dispatch[serve_step]" in {e.name for e in prof.events()}
+
+
 def test_concurrent_requests_bit_identical_to_sequential(step, templates, engine):
     """Three requests ride ONE padded 4-member batch; every streamed state
     matches its own sequential run to 0 ULP."""

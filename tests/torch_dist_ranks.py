@@ -152,6 +152,22 @@ def _fresh(inputs, mesh):
     return {n: _local(a, mesh) for n, a in f.items()}
 
 
+def _profiled_annotations(fn):
+    """The names of the user annotations a CPU profile of ``fn()`` holds."""
+    import json
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            fn()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "user_annotation"})
+
+
 def program_cases(rank: int, world: int, inputs: dict):
     """The distributed program against the eager chain of DistributedStencils,
     its forced marker, iterate, open outputs, and the ensemble over members x
@@ -182,9 +198,14 @@ def program_cases(rank: int, world: int, inputs: dict):
     out["forced_ops"] = info["program_report"]["halo_plan"]["ops"]
 
     info = {}
+    halo.reset_message_counts()
     final = dp.iterate(NT, _fresh(inputs, mesh), sc, exec_info=info)
+    out["iterate_messages"] = _everyone(halo.message_counts())
+    out["iterate_timings"] = _everyone(info["rank_timings"])
+    out["coords"] = _everyone((int(mesh.get_local_rank("data")), int(mesh.get_local_rank("model"))))
     out["iterate"] = _global(final["phi"], mesh)
     out["iterate_report"] = info["program_report"]
+    out["profiled"] = _profiled_annotations(lambda: dp.iterate(2, _fresh(inputs, mesh), sc))
 
     f = {n: _local(inputs[k], mesh) for n, k in (("phi", "phi0"), ("u", "u0"), ("v", "v0"))}
     f["adv"] = torch.zeros_like(f["phi"])
