@@ -19,8 +19,9 @@ not its blocks.  The schedule is GridTools' ``gtcuda`` one:
   registers (demoted ``impl.local_decls`` whose stages share one group), in
   shared-memory planes (temporaries of one PARALLEL interval, and the rolling
   ``window`` planes of ``analysis.sequential_carry_plan``), or, when they
-  cross intervals or multi-stages (the ``full`` carries, vadv's
-  ``cp``/``dp``), in a per-block device scratch the wrapper allocates;
+  cross intervals or multi-stages outside a k-walk (below), or are read
+  after it (the ``full`` carries, vadv's ``cp``/``dp``), in a per-block
+  device scratch the wrapper allocates;
 * ragged tiles are masked in the kernel and outputs are written in place, so
   inout, masked and partial-k outputs keep the caller's values.
 
@@ -38,6 +39,22 @@ another of its stages writes runs as several consecutive k-sweeps over its k
 range (``_k_sweeps``), so that plane-by-plane order inside each sweep gives
 the reference's stage-by-stage order; a temporary that crosses sweeps is
 ``full`` scratch, and a written API field is the block's own column.
+
+A k-walk runs a chain of consecutive PARALLEL intervals (or k-sweeps) and
+contiguous FORWARD multi-stages as one ascending loop: at step ``k`` each
+runs level ``k + lead``, its lead the least that keeps every pair of
+accesses to a field, one of them a write, in the reference's order
+(``_walk_shifts``), so a producer runs ahead of the stages that read it
+above.  What one interval passes to the next then lives on chip: a ring of
+registers holds the newest levels a field was written at
+(``_Plan._find_rings``), and serves each read at its own column that the
+intervals' bounds prove to find a level the walk wrote; a temporary all of
+whose reads it serves needs no memory (``ring``), one read at other columns
+takes shared-memory planes (``plane_ring``), and the rest stay ``full``.  A
+walk that keeps no temporary out of memory keeps the loops; a kernel that
+walks asks for 1024 resident threads an SM (64 registers a thread), so that
+other blocks hide each level's memory latency.  ``SCHEDULE["k_walks"]``
+lists each walk's units with their leads and its registers.
 
 Limits, checked when the source is generated, are the reference's: a written
 API field may not be read at a horizontal offset, or from a stage whose
@@ -69,11 +86,11 @@ import numpy as np
 from repro_torch.obs import trace as otrace
 
 from . import analysis, ir
-from .codegen_common import Emitter, bound_expr, multistage_plan
+from .codegen_common import Emitter, _c, bound_expr, multistage_plan
 from .gtscript import GTScriptSemanticError
 
 # bump on any change to the generated source: it is part of the fingerprint
-CODEGEN_VERSION = "cuda-3"
+CODEGEN_VERSION = "cuda-4"
 DEFAULT_BLOCK: Tuple[int, int] = (8, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -391,14 +408,110 @@ def _contiguous(ms: ir.MultiStage) -> bool:
     return all(a.end == b.start for a, b in zip(ivs, ivs[1:]))
 
 
+def _walk_chains(impl: ir.StencilImplementation,
+                 acc: Dict[str, List[_Access]]) -> List[List[List[Tuple[int, int]]]]:
+    """Runs of consecutive nodes that one ascending loop over k can walk: a
+    node is one PARALLEL interval (or k-sweep), or a whole FORWARD
+    multi-stage whose intervals follow one another.  A BACKWARD or a gapped
+    FORWARD multi-stage ends a run, and so does a node that touches a
+    written non-IJK field an earlier node of the run touches (its levels
+    alias)."""
+    flat_written = {f.name for f in impl.api_fields if f.axes != ir.AXES_IJK} & set(impl.written_api_fields())
+    touched: Dict[Tuple[int, int], Set[str]] = {}
+    for n, accs in acc.items():
+        for a in accs:
+            touched.setdefault((a.mi, a.ii), set()).add(n)
+    chains: List[List[List[Tuple[int, int]]]] = [[]]
+    seen: Set[str] = set()
+    for mi, ms in enumerate(impl.multi_stages):
+        units = [(mi, ii) for ii in range(len(ms.intervals))]
+        forward = ms.order == ir.IterationOrder.FORWARD
+        if ms.order == ir.IterationOrder.BACKWARD or (forward and not _contiguous(ms)):
+            chains.append([])
+            seen = set()
+            continue
+        for node in ([units] if forward else [[u] for u in units]):
+            flat = set().union(*(touched.get(u, set()) for u in node)) & flat_written
+            if flat & seen:
+                chains.append([])
+                seen = set()
+            chains[-1].append(node)
+            seen |= flat
+    return [c for c in chains if len(c) > 1]
+
+
+def _walk_shifts(node_accs: List[List[Tuple[str, bool, int]]]) -> List[int]:
+    """The least level lead of each node of a walk, so that every pair of
+    accesses to one field, one of them a write, keeps the reference's order.
+    A node ``u`` before ``v`` that touches a level at offset ``a`` which
+    ``v`` touches at offset ``b`` must reach it no later: ``s_u - s_v >=
+    b - a``.  Every bound points from an earlier node to a later one, so the
+    leads follow from the last node back and always exist."""
+    shifts = [0] * len(node_accs)
+    for u in range(len(node_accs) - 2, -1, -1):
+        for v in range(u + 1, len(node_accs)):
+            for n, w, a in node_accs[u]:
+                for m, w2, b in node_accs[v]:
+                    if n == m and (w or w2):
+                        shifts[u] = max(shifts[u], shifts[v] + b - a)
+    return shifts
+
+
+@dataclasses.dataclass
+class _Unit:
+    mi: int
+    ii: int
+    shift: int = 0  # runs level k + shift at the walk's step k
+    node: int = 0  # its node in the walk (a FORWARD multi-stage's intervals share one)
+
+
+def _on_tile(a: _Access) -> bool:
+    """Whether the access's stage computes on the tile alone (each thread at
+    its own point)."""
+    return (a.extent.i, a.extent.j) == ((0, 0), (0, 0))
+
+
+@dataclasses.dataclass
+class _Ring:
+    """A walk's registers for one field: slot ``d`` holds the level written
+    ``d`` steps ago by its writers at ``lead``; ``served`` gives the slot of
+    each read it serves, by (multi-stage, interval, stage, dk); ``memory``
+    whether the writes also go to the field's memory."""
+
+    lead: int
+    depth: int
+    served: Dict[Tuple[int, int, int, int], int]
+    memory: bool = True
+
+
+@dataclasses.dataclass
+class _Loop:
+    """One loop over k: a single interval, or a walk of several nodes at one
+    step each (``units`` in the reference's order)."""
+
+    units: List[_Unit]
+    # staged (input, plane offset from the loop's k), and the units reading each
+    planes: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
+    readers: Dict[Tuple[str, int], List[int]] = dataclasses.field(default_factory=dict)
+    rings: Dict[str, _Ring] = dataclasses.field(default_factory=dict)  # by field
+
+    @property
+    def walk(self) -> bool:
+        return len(self.units) > 1
+
+    @property
+    def lookahead(self) -> int:
+        return max(u.shift for u in self.units)
+
+
 @dataclasses.dataclass
 class _Temp:
     name: str
-    kind: str  # 'reg' | 'plane' | 'window' | 'full'
+    kind: str  # 'reg' | 'plane' | 'window' | 'ring' | 'plane_ring' | 'full'
     ctype: str
     itemsize: int
     ext: ir.Extent
-    depth: int = 0  # window: history planes
+    depth: int = 0  # window, ring, plane_ring: planes kept behind the newest
     k_lo: int = 0  # full: k margin below / above the domain
     k_hi: int = 0
     masked: bool = False
@@ -445,8 +558,27 @@ class _Plan:
         }
         self.written = set(impl.written_api_fields())
         self._check_api()
+        chains = _walk_chains(impl, self.acc)
+        self.loops = self._loops(chains)
+        self._find_rings()
         self.temps = self._classify_temps()
+        # a walk that keeps no temporary out of memory gains nothing for the
+        # registers it costs: its intervals keep their loops
+        onchip = [n for n, t in self.temps.items() if t.kind in ("ring", "plane_ring")]
+        kept = [c for c in chains if any(self.loop_of[(a.mi, a.ii)] is self.loop_of[c[0][0]]
+                                         for n in onchip for a in self.acc[n])]
+        if len(kept) < len(chains):
+            self.loops = self._loops(kept)
+            self._find_rings()
+        for loop in self.loops:
+            for n in list(loop.rings):
+                kind = self.temps[n].kind if n in self.temps else None
+                if kind == "ring":
+                    loop.rings[n].memory = False
+                elif kind not in (None, "full"):  # a register, a plane or a window needs none
+                    del loop.rings[n]
         self.staged = self._staged_inputs()
+        self._stage_loops()
         # staged planes double-buffered and filled by cp.async (4- and 8-byte elements)
         self.async_staging = async_staging and bool(self.staged) and all(
             np.dtype(self.api[n].dtype).itemsize in (4, 8) for lst in self.staged.values() for n, _ in lst)
@@ -488,7 +620,134 @@ class _Plan:
                         "write; stage the value through a temporary instead"
                     )
 
+    # -- k-walks -----------------------------------------------------------------
+
+    def _loops(self, chains) -> List[_Loop]:
+        """Every interval's loop over k, in order; the intervals of each
+        walk chain share one loop, each at its node's lead."""
+        walk_of: Dict[Tuple[int, int], _Loop] = {}
+        for chain in chains:
+            node_accs = [sorted({(n, a.write, a.offset[2]) for n, accs in self.acc.items()
+                                 for a in accs if (a.mi, a.ii) in node}) for node in chain]
+            shifts = _walk_shifts(node_accs)
+            loop = _Loop([_Unit(mi, ii, s, ni)
+                          for ni, (node, s) in enumerate(zip(chain, shifts)) for mi, ii in node])
+            for u in loop.units:
+                walk_of[(u.mi, u.ii)] = loop
+        loops: List[_Loop] = []
+        self.unit_of: Dict[Tuple[int, int], _Unit] = {}
+        self.loop_of: Dict[Tuple[int, int], _Loop] = {}
+        for mi, ms in enumerate(self.impl.multi_stages):
+            for ii in range(len(ms.intervals)):
+                loop = walk_of.get((mi, ii)) or _Loop([_Unit(mi, ii)])
+                if loop.units[0].mi == mi and loop.units[0].ii == ii:
+                    loops.append(loop)
+                self.loop_of[(mi, ii)] = loop
+                self.unit_of[(mi, ii)] = next(u for u in loop.units if (u.mi, u.ii) == (mi, ii))
+        return loops
+
+    def _find_rings(self) -> None:
+        """Each walk's register rings: for a field (temporary or IJK API
+        field) whose every write in the walk is unmasked, from a stage on the
+        tile alone and at one lead, registers ``r_<name>_0..depth`` hold the
+        newest levels it wrote (slot ``d`` the level written ``d`` steps
+        ago).  They serve each read in the walk at the reader's own column,
+        from a stage on the tile, that finds at every nk a level a write of
+        the walk before it has written (``_reads_see_walk_writes``); the
+        other reads, and every read outside the walk, read memory, which the
+        writes still fill unless the field is a ``ring`` temporary."""
+        for loop in self.loops:
+            if not loop.walk:
+                continue
+            for n, accs in self.acc.items():
+                if n in self.api and self.api[n].axes != ir.AXES_IJK:
+                    continue
+                inside = [a for a in accs if self.loop_of[(a.mi, a.ii)] is loop]
+                writes = [a for a in inside if a.write]
+                if not writes or any(a.masked or not _on_tile(a) for a in writes):
+                    continue
+                leads = {self.unit_of[(a.mi, a.ii)].shift for a in writes}
+                if len(leads) != 1:
+                    continue
+                (lead,) = leads
+                served: Dict[Tuple[int, int, int, int], int] = {}
+                for a in inside:
+                    # the read finds the level its writers passed ``lag`` steps ago
+                    lag = lead - self.unit_of[(a.mi, a.ii)].shift - a.offset[2]
+                    if (not a.write and a.offset[:2] == (0, 0) and _on_tile(a) and lag >= 0
+                            and self._reads_see_walk_writes(loop, writes, [a])):
+                        served[(a.mi, a.ii, a.si, a.offset[2])] = lag
+                if served:
+                    loop.rings[n] = _Ring(lead, max(served.values()), served)
+
+    def _walk_planes(self, accs: List[_Access]) -> Optional[int]:
+        """The depth of the shared-memory planes a walk keeps a
+        temporary in when some access reaches another column or comes from
+        a stage beyond the tile: every access in one walk, every write
+        unmasked and at one lead, every read finding a level a write of the
+        walk before it has written; else None."""
+        if not accs or any(a.write and a.masked for a in accs):
+            return None
+        loop = self.loop_of[(accs[0].mi, accs[0].ii)]
+        if not loop.walk or any(self.loop_of[(a.mi, a.ii)] is not loop for a in accs):
+            return None
+        leads = {self.unit_of[(a.mi, a.ii)].shift for a in accs if a.write}
+        if len(leads) != 1:
+            return None
+        (lead,) = leads
+        reads = [a for a in accs if not a.write]
+        lags = [lead - self.unit_of[(a.mi, a.ii)].shift - a.offset[2] for a in reads]
+        if min(lags, default=0) < 0 or not self._reads_see_walk_writes(loop, [a for a in accs if a.write], reads):
+            return None
+        return max(lags, default=0)
+
+    def _reads_see_walk_writes(self, loop: _Loop, writes: List[_Access], reads: List[_Access]) -> bool:
+        """Whether, in the reference's order, each of ``reads`` finds a level
+        inside the domain that one of ``writes`` (of the walk) before it has
+        written, at every nk.  The bounds are ``START + a`` or ``END + b``, so
+        past the levels the offsets, the reads and the leads reach from either
+        end, a larger nk only repeats the middle level."""
+        units = loop.units
+        index = {(u.mi, u.ii): ui for ui, u in enumerate(units)}
+        ivs = [self.impl.multi_stages[u.mi].intervals[u.ii].interval for u in units]
+        forward = [self.impl.multi_stages[u.mi].order == ir.IterationOrder.FORWARD for u in units]
+        reach = (max(abs(b.offset) for iv in ivs for b in (iv.start, iv.end))
+                 + max(abs(a.offset[2]) for a in reads) + loop.lookahead + 1)
+        wr = [(index[(a.mi, a.ii)], a.si) for a in writes]
+
+        def before(wu: int, ws: int, wk: int, ru: int, rs: int, rk: int) -> bool:
+            if units[wu].node != units[ru].node:
+                return units[wu].node < units[ru].node
+            if forward[ru]:
+                return (wk, wu, ws) < (rk, ru, rs)
+            return ws < rs
+
+        for nk in range(max(1, self.impl.min_k_levels), 2 * reach + 4):
+            levels = [range(*iv.resolve(nk)) for iv in ivs]
+            for a in reads:
+                ru = index[(a.mi, a.ii)]
+                for k in levels[ru]:
+                    lv = k + a.offset[2]
+                    if not 0 <= lv < nk or not any(
+                        lv in levels[wu] and before(wu, ws, lv, ru, a.si, k) for wu, ws in wr
+                    ):
+                        return False
+        return True
+
     # -- storage classes ------------------------------------------------------
+
+    def _sole_ring(self, n: str, accs: List[_Access]) -> Optional["_Ring"]:
+        """The walk's ring of a temporary whose every access lies in that
+        walk and every read of which the ring serves: no memory needed."""
+        if not accs:
+            return None
+        loop = self.loop_of[(accs[0].mi, accs[0].ii)]
+        ring = loop.rings.get(n)
+        if ring is None or any(self.loop_of[(a.mi, a.ii)] is not loop for a in accs):
+            return None
+        if any((a.mi, a.ii, a.si, a.offset[2]) not in ring.served for a in accs if not a.write):
+            return None
+        return ring
 
     def _classify_temps(self) -> Dict[str, _Temp]:
         impl = self.impl
@@ -519,6 +778,10 @@ class _Plan:
                 order == ir.IterationOrder.PARALLEL or n in locals_
             ):
                 temps[n] = _Temp(n, "plane", ct, isz, ext, masked=masked)
+            elif (ring := self._sole_ring(n, accs)) is not None:
+                temps[n] = _Temp(n, "ring", ct, isz, ext, depth=ring.depth)
+            elif (depth := self._walk_planes(accs)) is not None:
+                temps[n] = _Temp(n, "plane_ring", ct, isz, ext, depth=depth)
             else:
                 dks = [a.offset[2] for a in accs] or [0]
                 temps[n] = _Temp(n, "full", ct, isz, ext,
@@ -541,6 +804,27 @@ class _Plan:
                     staged.setdefault(key, []).append((n, a.offset[2]))
         return staged
 
+    def _stage_loops(self) -> None:
+        """Each loop's staged planes, by offset from the loop's k: a walk's
+        unit at lead ``s`` reads plane ``dk`` at ``s + dk``."""
+        for loop in self.loops:
+            for ui, u in enumerate(loop.units):
+                for n, dk in self.staged.get((u.mi, u.ii), []):
+                    key = (n, dk + u.shift)
+                    if key not in loop.readers:
+                        loop.planes.append(key)
+                    loop.readers.setdefault(key, []).append(ui)
+
+    def staged_planes(self) -> List[Tuple[str, int]]:
+        """Every staged (input, plane offset) of the kernel, each once."""
+        out: List[Tuple[str, int]] = []
+        for (mi, ii), lst in self.staged.items():
+            shift = self.unit_of[(mi, ii)].shift
+            for n, dk in lst:
+                if (n, dk + shift) not in out:
+                    out.append((n, dk + shift))
+        return out
+
     # -- shared memory ----------------------------------------------------------
 
     def _layout_smem(self) -> None:
@@ -556,19 +840,14 @@ class _Plan:
             self.smem_terms.append((er, ec, planes, isz))
             off += _round_up((self.bi + er) * (self.bj + ec) * isz, _SMEM_ALIGN) * planes
 
-        seen: Set[Tuple[str, int]] = set()
-        for lst in self.staged.values():
-            for n, dk in lst:
-                if (n, dk) in seen:
-                    continue
-                seen.add((n, dk))
-                e = self.impl.extent_of(n)
-                add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 2 if self.async_staging else 1,
-                    np.dtype(self.api[n].dtype).itemsize)
+        for n, dk in self.staged_planes():
+            e = self.impl.extent_of(n)
+            add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 2 if self.async_staging else 1,
+                np.dtype(self.api[n].dtype).itemsize)
         for t in self.temps.values():
             if t.kind == "plane":
                 add(t.name, t.rows_extra, t.cols_extra, 1, t.itemsize)
-            elif t.kind == "window":
+            elif t.kind in ("window", "plane_ring"):
                 add(t.name, t.rows_extra, t.cols_extra, t.depth + 1, t.itemsize)
         self.smem_bytes = off
 
@@ -601,8 +880,13 @@ _NATIVE_C = {
 class _CPrinter:
     def __init__(self, plan: _Plan):
         self.plan = plan
-        # the (input, dk) planes staged in shared memory for the current interval
+        # the staged (input, plane offset) planes of the unit being printed,
+        # its lead (its k is the loop's k + shift), its loop's register rings
+        # and the (multi-stage, interval, stage) being printed
         self.staged: Set[Tuple[str, int]] = set()
+        self.shift = 0
+        self.rings: Dict[str, _Ring] = {}
+        self.at: Tuple[int, int, int] = (0, 0, 0)
 
     def literal(self, e: ir.Literal) -> str:
         if e.dtype == "bool" or isinstance(e.value, bool):
@@ -615,20 +899,27 @@ class _CPrinter:
         return f"real_t({v!r})"
 
     def read(self, fa: ir.FieldAccess) -> str:
-        n = fa.name
-        di, dj, dk = fa.offset
+        ring = self.rings.get(fa.name)
+        if ring is not None and fa.offset[:2] == (0, 0):
+            lag = ring.served.get(self.at + (fa.offset[2],))
+            if lag is not None:
+                return f"r_{fa.name}_{lag}"
+        return self._memory(fa.name, fa.offset)
+
+    def _memory(self, n: str, offset: Tuple[int, int, int]) -> str:
+        di, dj, dk = offset
         t = self.plan.temps.get(n)
         if t is not None:
             if t.kind == "reg":
                 return f"r_{n}"
             if t.kind == "plane":
                 return f"P_{n}({di}, {dj})"
-            if t.kind == "window":
+            if t.kind in ("window", "plane_ring"):
                 return f"W_{n}({di}, {dj}, {dk})"
             return f"F_{n}({di}, {dj}, {dk})"
         axes = self.plan.api[n].axes
-        if (n, dk) in self.staged:
-            return f"S_{n}_{_dk_tag(dk)}({di}, {dj})"
+        if (n, dk + self.shift) in self.staged:
+            return f"S_{n}_{_dk_tag(dk + self.shift)}({di}, {dj})"
         if axes == ir.AXES_IJK:
             return f"A_{n}({di}, {dj}, {dk})"
         if axes == ("I", "J"):
@@ -636,7 +927,10 @@ class _CPrinter:
         return f"A_{n}({dk})"
 
     def target(self, name: str) -> str:
-        return self.read(ir.FieldAccess(name, (0, 0, 0)))
+        ring = self.rings.get(name)
+        if ring is not None and not ring.memory:
+            return f"r_{name}_0"
+        return self._memory(name, (0, 0, 0))
 
     def expr(self, e: ir.Expr) -> str:
         if isinstance(e, ir.Literal):
@@ -679,7 +973,14 @@ class _CPrinter:
 
     def stmt(self, em: Emitter, s: ir.Stmt) -> None:
         if isinstance(s, ir.Assign):
-            em.line(f"{self.target(s.target.name)} = {self.expr(s.value)};")
+            n = s.target.name
+            ring = self.rings.get(n)
+            if ring is not None and ring.memory:
+                # the walk's readers take the value from the ring, the rest from memory
+                em.line(f"r_{n}_0 = {self.expr(s.value)};")
+                em.line(f"{self.target(n)} = r_{n}_0;")
+            else:
+                em.line(f"{self.target(n)} = {self.expr(s.value)};")
         elif isinstance(s, ir.If):
             em.line(f"if ({self.expr(s.cond)}) {{")
             em.push()
@@ -744,12 +1045,13 @@ def _region_loop(em: Emitter, ext_i: Tuple[int, int], ext_j: Tuple[int, int]) ->
     em.line(f"const int ii = p / rw + ({ilo}), jj = p % rw + ({jlo});")
 
 
-def _close_region_loop(em: Emitter) -> None:
+def _close_region_loop(em: Emitter, sync: bool = True) -> None:
     em.pop()
     em.line("}")
     em.pop()
     em.line("}")
-    em.line("__syncthreads();")
+    if sync:
+        em.line("__syncthreads();")
 
 
 def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_staging: bool = True,
@@ -788,11 +1090,18 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     em.line("// Hopper counterpart of the fused Pallas TPU kernel that")
     em.line("// repro/core/codegen_pallas.py::generate_pallas_source emits for this stencil.")
     em.line("// Bound on the card: device-memory bytes (each input read once, each output")
-    em.line("// written once, over the H100's 3.35 TB/s); a few flops per byte.")
+    em.line("// written once, over the H100's 3.35 TB/s); a few flops per byte.  So what")
+    em.line("// one interval passes to the next stays on chip where the order allows: a")
+    em.line("// k-walk runs consecutive PARALLEL and FORWARD intervals as one loop down")
+    em.line("// each column, each a few levels ahead of those that read it, and keeps")
+    em.line("// their temporaries in registers or shared-memory planes, not in scratch.")
     for mi, ms in enumerate(impl.multi_stages):
         em.line(f"// multi-stage {mi}: {multistage_plan(ms)}")
+    for w in _k_walks(plan):
+        em.line(f"// k-walk: {'; '.join(f'ms {mi} {iv} at k{_c(s)}' for mi, iv, s in w['units'])}")
     for t in plan.temps.values():
-        em.line(f"// temporary {t.name}: {t.kind}" + (f" (depth {t.depth})" if t.kind == "window" else ""))
+        depth = t.kind in ("window", "ring", "plane_ring")
+        em.line(f"// temporary {t.name}: {t.kind}" + (f" (depth {t.depth})" if depth else ""))
     em.line(f"typedef {_ctype(float_dt)} real_t;")
     em.line(f"#define BI {plan.bi}")
     em.line(f"#define BJ {plan.bj}")
@@ -816,18 +1125,13 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
                     f" + (long long)(oj_{n} + j0 + jj + (dj)) * st_{n}_1]")
         else:
             em.line(f"#define A_{n}(dk) f_{n}[(long long)(ok_{n} + k + (dk)) * st_{n}_0]")
-    seen: Set[Tuple[str, int]] = set()
-    for lst in plan.staged.values():
-        for n, dk in lst:
-            if (n, dk) in seen:
-                continue
-            seen.add((n, dk))
-            e = impl.extent_of(n)
-            w = plan.bj + e.j[1] - e.j[0]
-            # double-buffered: ``stg`` is the buffer of the plane being computed
-            buf = f"stg * {_staged_plane_elems(plan, n)} + " if plan.async_staging else ""
-            em.line(f"#define S_{n}_{_dk_tag(dk)}(di, dj) ss_{n}_{_dk_tag(dk)}"
-                    f"[{buf}(ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}))]")
+    for n, dk in plan.staged_planes():
+        e = impl.extent_of(n)
+        w = plan.bj + e.j[1] - e.j[0]
+        # double-buffered: ``stg`` is the buffer of the plane being computed
+        buf = f"stg * {_staged_plane_elems(plan, n)} + " if plan.async_staging else ""
+        em.line(f"#define S_{n}_{_dk_tag(dk)}(di, dj) ss_{n}_{_dk_tag(dk)}"
+                f"[{buf}(ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}))]")
     for t in plan.temps.values():
         w = plan.bj + t.cols_extra
         h = plan.bi + t.rows_extra
@@ -835,7 +1139,7 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
         idx = f"(ii + (di) - ({ilo})) * {w} + (jj + (dj) - ({jlo}))"
         if t.kind == "plane":
             em.line(f"#define P_{t.name}(di, dj) sp_{t.name}[{idx}]")
-        elif t.kind == "window":
+        elif t.kind in ("window", "plane_ring"):
             stride = _round_up(h * w * t.itemsize, _SMEM_ALIGN) // t.itemsize
             em.line(f"#define W_{t.name}(di, dj, dk) sp_{t.name}[gt_slot(k + (dk), {t.depth + 1}) * {stride} + {idx}]")
         elif t.kind == "full":
@@ -845,7 +1149,13 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
                     f" + (jj + (dj) - ({jlo}))]")
     em.line()
 
-    em.line(f"__global__ void __launch_bounds__(NT) k_{kname}({', '.join(params)}) {{")
+    bounds = "NT"
+    if any(loop.walk for loop in plan.loops):
+        # a walk carries its levels in registers: ask for 1024 resident threads
+        # an SM (64 registers a thread), so that other blocks hide each level's
+        # memory latency, and let the compiler spill the rest
+        bounds = f"NT, {max(1, 1024 // (plan.bi * plan.bj))}"
+    em.line(f"__global__ void __launch_bounds__({bounds}) k_{kname}({', '.join(params)}) {{")
     em.push()
     em.line("extern __shared__ __align__(16) unsigned char smem[];")
     for key, off in plan.smem_off.items():
@@ -887,89 +1197,19 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     if any(t.zero_all or t.k_lo or t.k_hi for t in full):
         em.line("__syncthreads();")
 
-    for mi, ms in enumerate(impl.multi_stages):
-        em.line(f"// ---- multi-stage {mi}: {multistage_plan(ms)}")
-        backward = ms.order == ir.IterationOrder.BACKWARD
-        windows = [t for t in plan.temps.values() if t.kind == "window"
-                   and any(a.mi == mi for a in plan.acc.get(t.name, ()))]
-        if windows:
-            # history planes start zeroed, like the zero-initialized temporary
-            for t in windows:
-                em.line(f"for (int p = tid; p < {(t.depth + 1)} * {_plane_elems(plan, t)}; p += NT) "
-                        f"sp_{t.name}[p] = {t.ctype}(0);")
-            em.line("__syncthreads();")
-        for ii, itv in enumerate(ms.intervals):
-            staged = plan.staged.get((mi, ii), [])
-            pr.staged = set(staged)
-            prefetch = plan.async_staging and bool(staged)
-            em.line("{")
-            em.push()
-            em.line(f"const int k0 = {bound_expr(itv.interval.start)}, k1 = {bound_expr(itv.interval.end)};")
-            if prefetch:
-                # the first plane's copy starts before the loop
-                em.line("int stg = 0;")
-                em.line("if (k0 < k1) {")
-                em.push()
-                em.line(f"const int k = {'k1 - 1' if backward else 'k0'};")
-                _emit_staging(em, plan, staged, asynchronous=True)
-                em.pop()
-                em.line("}")
-            if backward:
-                em.line("for (int k = k1 - 1; k >= k0; --k) {")
-            else:
-                em.line("for (int k = k0; k < k1; ++k) {")
-            em.push()
-            prologue = False
-            for t in windows:
-                # each iteration's current plane starts zeroed
-                em.line(f"for (int p = tid; p < {_plane_elems(plan, t)}; p += NT) "
-                        f"sp_{t.name}[gt_slot(k, {t.depth + 1}) * {_plane_elems(plan, t)} + p] = {t.ctype}(0);")
-                prologue = True
-            for t in plan.temps.values():
-                if t.kind == "plane" and t.masked and any(
-                    (a.mi, a.ii) == (mi, ii) for a in plan.acc.get(t.name, ())
-                ):
-                    em.line(f"for (int p = tid; p < {_plane_elems(plan, t)}; p += NT) sp_{t.name}[p] = {t.ctype}(0);")
-                    prologue = True
-            if prefetch:
-                # this plane's copies (issued one iteration ago) have landed
-                # for every thread; then the next plane's copy overlaps this
-                # plane's stages (its buffer was last read before the barrier)
-                em.line("gt_cp_async_wait_all();")
+    done = -1
+    for loop in plan.loops:
+        for mi in sorted({u.mi for u in loop.units} - set(range(done + 1))):
+            em.line(f"// ---- multi-stage {mi}: {multistage_plan(impl.multi_stages[mi])}")
+            windows = _windows(plan, mi)
+            if windows:
+                # history planes start zeroed, like the zero-initialized temporary
+                for t in windows:
+                    em.line(f"for (int p = tid; p < {(t.depth + 1)} * {_plane_elems(plan, t)}; p += NT) "
+                            f"sp_{t.name}[p] = {t.ctype}(0);")
                 em.line("__syncthreads();")
-                em.line(f"if ({'k - 1 >= k0' if backward else 'k + 1 < k1'}) {{")
-                em.push()
-                em.line(f"const int k_next = {'k - 1' if backward else 'k + 1'}, stg_next = stg ^ 1;")
-                em.line("{")
-                em.push()
-                em.line("const int k = k_next, stg = stg_next;")
-                _emit_staging(em, plan, staged, asynchronous=True)
-                em.pop()
-                em.line("}")
-                em.pop()
-                em.line("}")
-            else:
-                if staged:
-                    _emit_staging(em, plan, staged, asynchronous=False)
-                    prologue = True
-                if prologue:
-                    em.line("__syncthreads();")
-            for g, stages in enumerate(plan.groups[(mi, ii)]):
-                ext = itv.stages[stages[0]].compute_extent
-                _region_loop(em, ext.i, ext.j)
-                for t in plan.temps.values():
-                    if t.kind == "reg" and t.group == (mi, ii, g):
-                        em.line(f"{t.ctype} r_{t.name} = {t.ctype}(0);")
-                for si in stages:
-                    for stmt in itv.stages[si].stmts:
-                        pr.stmt(em, stmt)
-                _close_region_loop(em)
-            if prefetch:
-                em.line("stg ^= 1;")
-            em.pop()
-            em.line("}")
-            em.pop()
-            em.line("}")
+            done = mi
+        _emit_loop(em, plan, pr, loop)
     em.pop()
     em.line("}")
     em.line()
@@ -995,14 +1235,210 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     return em.source(), plan
 
 
-def _emit_staging(em: Emitter, plan: _Plan, staged, asynchronous: bool) -> None:
+def _windows(plan: _Plan, mi: int) -> List[_Temp]:
+    return [t for t in plan.temps.values() if t.kind == "window"
+            and any(a.mi == mi for a in plan.acc.get(t.name, ()))]
+
+
+def _prologue(plan: _Plan, u: _Unit) -> List[str]:
+    """Zero-fills before a unit's stages at its level: the current plane of
+    each window of its multi-stage, and each masked plane it touches."""
+    lines = []
+    for t in _windows(plan, u.mi):
+        lines.append(f"for (int p = tid; p < {_plane_elems(plan, t)}; p += NT) "
+                     f"sp_{t.name}[gt_slot(k, {t.depth + 1}) * {_plane_elems(plan, t)} + p] = {t.ctype}(0);")
+    for t in plan.temps.values():
+        if t.kind == "plane" and t.masked and any((a.mi, a.ii) == (u.mi, u.ii) for a in plan.acc.get(t.name, ())):
+            lines.append(f"for (int p = tid; p < {_plane_elems(plan, t)}; p += NT) sp_{t.name}[p] = {t.ctype}(0);")
+    return lines
+
+
+def _nest(fn: str, args: List[str]) -> str:
+    return args[0] if len(args) == 1 else f"{fn}({args[0]}, {_nest(fn, args[1:])})"
+
+
+def _emit_loop(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop) -> None:
+    """One loop over k: a single interval plane by plane, or a walk, whose
+    step ``t`` runs each unit at its level ``k = t + shift`` where its
+    interval holds it."""
+    impl = plan.impl
+    walk = loop.walk
+    ivs = [impl.multi_stages[u.mi].intervals[u.ii].interval for u in loop.units]
+    backward = impl.multi_stages[loop.units[0].mi].order == ir.IterationOrder.BACKWARD
+    prefetch = plan.async_staging and bool(loop.planes)
+    pr.rings = loop.rings
+    guards = None
+    var, lo, hi = ("t", "t0", "t1") if walk else ("k", "k0", "k1")
+    em.line("{")
+    em.push()
+    if walk:
+        active = [f"k{_c(u.shift)} >= {bound_expr(iv.start)} && k{_c(u.shift)} < {bound_expr(iv.end)}"
+                  for u, iv in zip(loop.units, ivs)]
+        # a staged plane is copied at the steps where a unit reading it runs
+        guards = {key: " || ".join(f"({active[ui]})" for ui in readers) for key, readers in loop.readers.items()}
+        starts = [bound_expr(iv.start) + _c(-u.shift) for u, iv in zip(loop.units, ivs)]
+        ends = [bound_expr(iv.end) + _c(-u.shift) for u, iv in zip(loop.units, ivs)]
+        em.line(f"const int t0 = {_nest('min', starts)};")
+        em.line(f"const int t1 = {_nest('max', ends)};")
+        for n, ring in loop.rings.items():
+            ct = plan.temps[n].ctype if n in plan.temps else _ctype(plan.api[n].dtype)
+            em.line(f"{ct} " + ", ".join(f"r_{n}_{d} = {ct}(0)" for d in range(ring.depth + 1)) + ";")
+    else:
+        em.line(f"const int k0 = {bound_expr(ivs[0].start)}, k1 = {bound_expr(ivs[0].end)};")
+    if prefetch:
+        # the first plane's copy starts before the loop
+        em.line("int stg = 0;")
+        em.line(f"if ({lo} < {hi}) {{")
+        em.push()
+        em.line(f"const int k = {'k1 - 1' if backward else lo};")
+        _emit_staging(em, plan, loop.planes, asynchronous=True, guards=guards)
+        em.pop()
+        em.line("}")
+    if backward:
+        em.line("for (int k = k1 - 1; k >= k0; --k) {")
+    else:
+        em.line(f"for (int {var} = {lo}; {var} < {hi}; ++{var}) {{")
+    em.push()
+    prologue = [] if walk else _prologue(plan, loop.units[0])
+    for ln in prologue:
+        em.line(ln)
+    if prefetch:
+        # this plane's copies (issued one iteration ago) have landed
+        # for every thread; then the next plane's copy overlaps this
+        # plane's stages (its buffer was last read before the barrier)
+        em.line("gt_cp_async_wait_all();")
+        em.line("__syncthreads();")
+        em.line(f"if ({'k - 1 >= k0' if backward else f'{var} + 1 < {hi}'}) {{")
+        em.push()
+        em.line(f"const int k_next = {'k - 1' if backward else f'{var} + 1'}, stg_next = stg ^ 1;")
+        em.line("{")
+        em.push()
+        em.line("const int k = k_next, stg = stg_next;")
+        _emit_staging(em, plan, loop.planes, asynchronous=True, guards=guards)
+        em.pop()
+        em.line("}")
+        em.pop()
+        em.line("}")
+    else:
+        if loop.planes:
+            if walk:
+                em.line("{")
+                em.push()
+                em.line("const int k = t;")
+            _emit_staging(em, plan, loop.planes, asynchronous=False, guards=guards)
+            if walk:
+                em.pop()
+                em.line("}")
+        if loop.planes or prologue:
+            em.line("__syncthreads();")
+    if walk:
+        _emit_walk_step(em, plan, pr, loop, ivs)
+    else:
+        _emit_groups(em, plan, pr, loop.units[0], None)
+    if prefetch:
+        em.line("stg ^= 1;")
+    em.pop()
+    em.line("}")
+    em.pop()
+    em.line("}")
+
+
+def _emit_walk_step(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop, ivs) -> None:
+    """One step of a walk: each unit at its level, in the reference's order.
+    A barrier parts two groups only where one writes what the other touches
+    and a thread may reach a point another thread handles (a horizontal
+    offset, or a stage computing beyond the tile).  Between units it stands
+    outside their guards, which hold at some steps and not at others; the
+    step ends with one, and the register rings move one level down."""
+    pending: List[Tuple[bool, Dict[str, Tuple[bool, bool]]]] = []
+    for u, iv in zip(loop.units, ivs):
+        mine = [_group_touches(plan, u, stages) for stages in plan.groups[(u.mi, u.ii)]]
+        prologue = _prologue(plan, u)
+        if pending and (prologue or any(_hazard(p, g) for p in pending for g in mine)):
+            em.line("__syncthreads();")
+            pending = []
+        em.line(f"// multi-stage {u.mi}, [{bound_expr(iv.start)}, {bound_expr(iv.end)}) at k = t{_c(u.shift)}")
+        em.line("{")
+        em.push()
+        em.line(f"const int k = t{_c(u.shift)};")
+        em.line(f"if (k >= {bound_expr(iv.start)} && k < {bound_expr(iv.end)}) {{")
+        em.push()
+        for ln in prologue:
+            em.line(ln)
+        if prologue:
+            em.line("__syncthreads();")
+        _emit_groups(em, plan, pr, u, [])
+        em.pop()
+        em.line("}")
+        em.pop()
+        em.line("}")
+        pending += mine
+    em.line("__syncthreads();")
+    for n, ring in loop.rings.items():
+        for d in range(ring.depth, 0, -1):
+            em.line(f"r_{n}_{d} = r_{n}_{d - 1};")
+
+
+def _group_touches(plan: _Plan, u: _Unit, stages: List[int]) -> Tuple[bool, Dict[str, Tuple[bool, bool]]]:
+    """Whether a group computes on the tile alone, and each field it
+    touches: (written, every access at its own column)."""
+    ext = plan.impl.multi_stages[u.mi].intervals[u.ii].stages[stages[0]].compute_extent
+    touched: Dict[str, Tuple[bool, bool]] = {}
+    for n, accs in plan.acc.items():
+        for a in accs:
+            if (a.mi, a.ii) == (u.mi, u.ii) and a.si in stages:
+                w, own = touched.get(n, (False, True))
+                touched[n] = (w or a.write, own and a.offset[:2] == (0, 0))
+    return (ext.i, ext.j) == ((0, 0), (0, 0)), touched
+
+
+def _hazard(a, b) -> bool:
+    """Whether two groups (``_group_touches``) need a barrier between them:
+    one writes a field the other touches, and not both compute on the tile
+    alone with every access at its own column."""
+    (tile_a, ta), (tile_b, tb) = a, b
+    return any((ta[n][0] or tb[n][0]) and not (tile_a and tile_b and ta[n][1] and tb[n][1])
+               for n in ta.keys() & tb.keys())
+
+
+def _emit_groups(em: Emitter, plan: _Plan, pr: _CPrinter, u: _Unit, pending) -> None:
+    """A unit's groups of stages at level ``k``.  With ``pending`` None each
+    group ends with a barrier; else (a walk's unit) a barrier comes before a
+    group only where ``_hazard`` says, against the unit's groups since the
+    last one."""
+    itv = plan.impl.multi_stages[u.mi].intervals[u.ii]
+    pr.shift = u.shift
+    pr.staged = {(n, dk + u.shift) for n, dk in plan.staged.get((u.mi, u.ii), [])}
+    for g, stages in enumerate(plan.groups[(u.mi, u.ii)]):
+        ext = itv.stages[stages[0]].compute_extent
+        if pending is not None:
+            mine = _group_touches(plan, u, stages)
+            if any(_hazard(p, mine) for p in pending):
+                em.line("__syncthreads();")
+                pending = []
+        _region_loop(em, ext.i, ext.j)
+        for t in plan.temps.values():
+            if t.kind == "reg" and t.group == (u.mi, u.ii, g):
+                em.line(f"{t.ctype} r_{t.name} = {t.ctype}(0);")
+        for si in stages:
+            pr.at = (u.mi, u.ii, si)
+            for stmt in itv.stages[si].stmts:
+                pr.stmt(em, stmt)
+        _close_region_loop(em, sync=pending is None)
+        if pending is not None:
+            pending.append(mine)
+
+
+def _emit_staging(em: Emitter, plan: _Plan, staged, asynchronous: bool,
+                  guards: Optional[Dict[Tuple[str, int], str]] = None) -> None:
     """Copy plane ``k`` (plus each input's vertical offset) of the staged
     inputs, tile plus halo, into their shared-memory planes (buffer ``stg``
-    when double-buffered): by ``cp.async`` or by plain loads and stores."""
+    when double-buffered): by ``cp.async`` or by plain loads and stores.
+    ``guards`` gives a walk's condition for each plane's copy."""
     for n, dk in staged:
         e = plan.impl.extent_of(n)
         em.line(f"// stage {n}[k{dk:+d}] plane, tile plus halo")
-        em.line("{")
+        em.line(f"if ({guards[(n, dk)]}) {{" if guards else "{")
         em.push()
         em.line(f"const int rh = ti + {e.i[1] - e.i[0]}, rw = tj + {e.j[1] - e.j[0]};")
         em.line("for (int p = tid; p < rh * rw; p += NT) {")
@@ -1031,6 +1467,16 @@ def _plane_elems(plan: _Plan, t: _Temp) -> int:
     h = plan.bi + t.rows_extra
     w = plan.bj + t.cols_extra
     return _round_up(h * w * t.itemsize, _SMEM_ALIGN) // t.itemsize
+
+
+def _k_walks(plan: _Plan) -> List[Dict[str, Any]]:
+    """Each walk: its units in order, as (multi-stage, interval, lead), and
+    its lookahead, the largest lead."""
+    return [{"units": [(u.mi, "[{}, {})".format(*(bound_expr(b) for b in (iv.start, iv.end))), u.shift)
+                       for u in loop.units
+                       for iv in (plan.impl.multi_stages[u.mi].intervals[u.ii].interval,)],
+             "lookahead": loop.lookahead,
+             "registers": {n: ring.depth for n, ring in loop.rings.items()}} for loop in plan.loops if loop.walk]
 
 
 def generate_cuda_module_source(
@@ -1062,6 +1508,7 @@ def generate_cuda_module_source(
         staged_inputs=sorted({f"{n}[k{dk:+d}]" for lst in plan.staged.values() for n, dk in lst}),
         async_staging=plan.async_staging,
         parallel_sweeps=dict(plan.sweeps),
+        k_walks=_k_walks(plan),
     )
     em = Emitter()
     em.line(f'"""Auto-generated by repro_torch.core — stencil {impl.name!r}, backend \'cuda\'."""')

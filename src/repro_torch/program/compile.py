@@ -445,6 +445,8 @@ class CompiledProgram:
             "elided_exchanges": len(plan.markers),
             "compile_seconds": 0.0,
         }
+        if backend == "cuda":  # each group kernel's k-walks (codegen_cuda's SCHEDULE)
+            self.report["group_k_walks"] = [o.kernel.module.SCHEDULE["k_walks"] for o in self.group_objects]
         self.report["compile_seconds"] = time.perf_counter() - t0
         otrace.current_tracer().add_span(
             "program.compile",

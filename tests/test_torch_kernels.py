@@ -26,7 +26,8 @@ from repro.kernels.hdiff.ref import hdiff_ref as r_hdiff_ref
 from repro.kernels.vadv.ops import vadv as r_vadv_op
 from repro.kernels.vadv.ref import vadv_ref as r_vadv_ref
 from repro_torch.core import analysis, codegen_cuda, gtscript, ir, ir_json, passes
-from repro_torch.core.gtscript import K, PARALLEL, Field, GTScriptSemanticError, computation, interval
+from repro_torch.core.gtscript import (BACKWARD, FORWARD, IJ, K, PARALLEL, Field, GTScriptSemanticError,
+                                      computation, interval)
 from repro_torch.core.stencil import build_from_definition as t_build
 from repro_torch.kernels.hdiff.ops import hdiff
 from repro_torch.kernels.hdiff.ref import hdiff_ref
@@ -201,7 +202,7 @@ def test_vertical_read_of_a_field_written_in_the_same_parallel_interval_builds()
     ("interval_merging_vertical", {"t": True}),  # read a plane up before the later interval writes it
     ("temp_above_and_below", {"t": False}),  # the first sweep writes every plane
     ("temp_vertical", {"t": True}),  # the top plane is never written
-    ("vertical_flux_divergence", {"wf": False, "flux": True}),  # flux leaves plane 0
+    ("vertical_flux_divergence", {"flux": True}),  # flux leaves plane 0; the k-walk keeps wf in registers
 ])
 def test_full_temporaries_are_zeroed_where_a_plane_is_read_before_written(case, zeroed):
     """The kernel zeroes a full temporary's scratch where its order may read
@@ -213,8 +214,9 @@ def test_full_temporaries_are_zeroed_where_a_plane_is_read_before_written(case, 
 
 
 def _reads_an_unwritten_plane(impl, name, nk):
-    """The kernel's order run level by level at ``nk``: whether a read of
-    ``name`` finds a plane of the domain that no stage has written yet."""
+    """The reference's interval-by-interval order run level by level at
+    ``nk``: whether a read of ``name`` finds a plane of the domain that no
+    stage has written yet."""
     written = set()
     for ms in impl.multi_stages:
         for itv in ms.intervals:
@@ -231,22 +233,23 @@ def _reads_an_unwritten_plane(impl, name, nk):
     return False
 
 
-def _vertical_program(rng, name):
+def _vertical_program(rng, name, orders=3, init=0.5):
     """A random definition (the reference's IR): one to three PARALLEL,
-    FORWARD or BACKWARD computations, each split at the column's ends, whose
-    statements read the temporaries one plane up and down; half of them
-    start by writing both temporaries over the whole column."""
+    FORWARD or BACKWARD computations (the first ``orders`` of these), each
+    split at the column's ends, whose statements read the temporaries one
+    plane up and down; a share ``init`` of them start by writing both
+    temporaries over the whole column."""
     from repro.core import ir as r_ir
 
     s, e = r_ir.LevelMarker.START, r_ir.LevelMarker.END
     splits = [[(s, 0, e, 0)], [(s, 0, s, 1), (s, 1, e, 0)], [(s, 0, e, -1), (e, -1, e, 0)],
               [(s, 0, s, 1), (s, 1, e, -1), (e, -1, e, 0)], [(s, 1, e, 0)], [(s, 0, e, -1)]]
-    orders = (r_ir.IterationOrder.PARALLEL, r_ir.IterationOrder.FORWARD, r_ir.IterationOrder.BACKWARD)
+    orders = (r_ir.IterationOrder.PARALLEL, r_ir.IterationOrder.FORWARD, r_ir.IterationOrder.BACKWARD)[:orders]
     leaves = [corpus_gen.Leaf("in1", h=1, dk=(-1, 0, 1)), corpus_gen.Leaf("t1", h=1, dk=(-1, 0, 1)),
               corpus_gen.Leaf("t2", h=0, dk=(-1, 0, 1))]
     comps = []
     for _ in range(rng.integers(1, 4)):
-        order = orders[rng.integers(3)]
+        order = orders[rng.integers(len(orders))]
         ivs = splits[rng.integers(len(splits))]
         blocks = [corpus_gen._interval(r_ir.AxisBound(a, ao), r_ir.AxisBound(b, bo),
                                        [corpus_gen._assign(("t1", "t2", "out1")[rng.integers(3)],
@@ -254,7 +257,7 @@ def _vertical_program(rng, name):
                                         for _ in range(rng.integers(1, 4))])
                   for a, ao, b, bo in (ivs[::-1] if order == r_ir.IterationOrder.BACKWARD else ivs)]
         comps.append(r_ir.ComputationBlock(order, tuple(blocks)))
-    if rng.random() < 0.5:
+    if rng.random() < init:
         init = [corpus_gen._assign(t, corpus_gen.gen_expr(rng, leaves[:1], 1)) for t in ("t1", "t2")]
         comps.insert(0, r_ir.ComputationBlock(r_ir.IterationOrder.PARALLEL, (
             corpus_gen._interval(r_ir.AxisBound(s, 0), r_ir.AxisBound(e, 0), init),)))
@@ -262,10 +265,13 @@ def _vertical_program(rng, name):
 
 
 def test_full_temporaries_are_zeroed_wherever_the_kernel_order_reads_an_unwritten_plane():
-    """The zeroing rule against the kernel's order run level by level at
+    """The zeroing rule against the reference's order run level by level at
     every ``nk`` up to 12, over the cases and random programs that read
     temporaries one plane up and down in every iteration order: no full
-    temporary that the order reads before writing goes unzeroed."""
+    temporary that the order reads before writing goes unzeroed, and no
+    temporary a k-walk keeps on chip (which nothing zeroes) is read there
+    before it is written.  The kernel's reads see the reference's writes
+    (``test_k_walk_reads_see_the_reference_writes_*``)."""
     impls = [gtscript.stencil("cuda", externals=dict(c.externals), opt_level=lvl)(c.defs).implementation_ir
              for c in stencil_cases.CASES for lvl in (0, 3)]
     rng = np.random.default_rng(22)
@@ -284,13 +290,221 @@ def test_full_temporaries_are_zeroed_wherever_the_kernel_order_reads_an_unwritte
         except GTScriptSemanticError:
             continue
         for n, t in plan.temps.items():
-            if t.kind == "full":
+            if t.kind in ("full", "ring", "plane_ring"):
                 truth = any(_reads_an_unwritten_plane(plan.impl, n, nk)
                             for nk in range(max(2, plan.impl.min_k_levels), 13))
-                assert t.zero_all or not truth, (impl.name, n)
+                assert (t.kind == "full" and t.zero_all) or not truth, (impl.name, n)
                 read_unwritten += truth
                 checked += 1
     assert read_unwritten >= 10 and checked >= 100
+
+
+class _Order:
+    """One order of a stencil's accesses at ``nk``, level by level: the write
+    each read sees (``seen``, None where no stage has written the level),
+    the last write of each level (``last``) and, for the kernel's order, the
+    loop and step of each access (``when``).  A non-IJK field is one level."""
+
+    def __init__(self, impl):
+        self.flat = {f.name for f in impl.api_fields if f.axes != ir.AXES_IJK}
+        self.label = {id(st): (mi, ii, si) for mi, ms in enumerate(impl.multi_stages)
+                      for ii, itv in enumerate(ms.intervals) for si, st in enumerate(itv.stages)}
+        self.seen, self.last, self.when, self.name = {}, {}, {}, {}
+
+    def _touch(self, st, j, a, n, write, off, k, where):
+        ev = (self.label[id(st)], j, a, k)
+        lv = None if n in self.flat else k + off[2]
+        if write:
+            self.last[(n, lv)] = ev
+        else:
+            self.seen[ev] = self.last.get((n, lv))
+        self.name[ev] = (n, off)
+        if where is not None:
+            self.when[ev] = where
+
+    @staticmethod
+    def _accesses(st):
+        for j, stmt in enumerate(st.stmts):
+            found = []
+            codegen_cuda._stmt_accesses(stmt, False, found)
+            yield j, found
+
+    def stage(self, st, levels, where=None):
+        """A stage over ``levels``: one level after the other (``where`` is
+        the kernel's loop and step), or each access over all of them at once
+        (the reference's PARALLEL stage, when ``levels`` is a range)."""
+        for j, found in self._accesses(st):
+            for a, (n, write, off, _masked) in enumerate(found):
+                for k in levels:
+                    self._touch(st, j, a, n, write, off, k, where)
+
+
+def _reference_order(impl, nk):
+    o = _Order(impl)
+    for ms in impl.multi_stages:
+        for itv in ms.intervals:
+            k0, k1 = itv.interval.resolve(nk)
+            if ms.order == ir.IterationOrder.PARALLEL:
+                for st in itv.stages:
+                    o.stage(st, range(k0, k1))
+                continue
+            for k in (range(k1 - 1, k0 - 1, -1) if ms.order == ir.IterationOrder.BACKWARD else range(k0, k1)):
+                for st in itv.stages:
+                    o.stage(st, (k,))
+    return o
+
+
+def _kernel_order(plan, impl, nk):
+    """The plan's loops run as the kernel runs them: a walk's step ``t``
+    runs each unit at level ``t + shift`` where its interval holds it."""
+    o = _Order(impl)
+    for li, loop in enumerate(plan.loops):
+        itvs = [plan.impl.multi_stages[u.mi].intervals[u.ii] for u in loop.units]
+        spans = [itv.interval.resolve(nk) for itv in itvs]
+        if plan.impl.multi_stages[loop.units[0].mi].order == ir.IterationOrder.BACKWARD:
+            assert not loop.walk
+            steps = range(spans[0][1] - 1, spans[0][0] - 1, -1)
+        else:
+            steps = range(min(lo - u.shift for u, (lo, _) in zip(loop.units, spans)),
+                          max(hi - u.shift for u, (_, hi) in zip(loop.units, spans)))
+        for t in steps:
+            for u, itv, (lo, hi) in zip(loop.units, itvs, spans):
+                if lo <= t + u.shift < hi:
+                    for st in itv.stages:
+                        o.stage(st, (t + u.shift,), where=(li, t))
+    return o
+
+
+def _hold_walks(impl):
+    """The kernel's order against the reference's at every ``nk`` up to 12:
+    every read sees the same (stage, level) write, every API level ends
+    with the same write, every read a walk's register ring serves sees a
+    write of that walk exactly its slot's steps before, and every read of a
+    temporary a walk keeps in shared-memory planes a write of its walk at
+    most ``depth`` steps before.  Returns the walks and the fields whose
+    reads they keep on chip."""
+    plan = codegen_cuda._Plan(impl, stencil_cases.BLOCK)
+    api = {f.name for f in impl.api_fields}
+    planes = {n: t for n, t in plan.temps.items() if t.kind == "plane_ring"}
+    assert all(t.kind != "ring" or any(n in loop.rings for loop in plan.loops) for n, t in plan.temps.items())
+    assert sorted({(u.mi, u.ii) for loop in plan.loops for u in loop.units}) == sorted(
+        (mi, ii) for mi, ms in enumerate(plan.impl.multi_stages) for ii in range(len(ms.intervals)))
+    for nk in range(max(1, impl.min_k_levels), 13):
+        ref, ker = _reference_order(impl, nk), _kernel_order(plan, impl, nk)
+        assert ker.seen == ref.seen, (impl.name, nk)
+        assert {k: v for k, v in ker.last.items() if k[0] in api} == \
+            {k: v for k, v in ref.last.items() if k[0] in api}, (impl.name, nk)
+        for ev, src in ker.seen.items():
+            (n, off), (lr, sr) = ker.name[ev], ker.when[ev]
+            ring = plan.loops[lr].rings.get(n)
+            lag = ring.served.get(ev[0] + (off[2],)) if ring is not None and off[:2] == (0, 0) else None
+            if lag is not None:
+                assert src is not None and ker.when[src] == (lr, sr - lag), (impl.name, nk, n, ev, src)
+            if n in planes:
+                (lw, sw) = ker.when[src]
+                assert lr == lw and 0 <= sr - sw <= planes[n].depth, (impl.name, nk, n, ev, src)
+    return sum(loop.walk for loop in plan.loops), len(planes) + sum(len(loop.rings) for loop in plan.loops)
+
+
+_WALK_CASES = [(c.name, lvl) for c in stencil_cases.CASES for lvl in (0, 3)]
+
+
+@pytest.mark.parametrize("name,lvl", _WALK_CASES, ids=[f"{n}@{lvl}" for n, lvl in _WALK_CASES])
+def test_k_walk_reads_see_the_reference_writes_on_the_cases(name, lvl):
+    c = stencil_cases.BY_NAME[name]
+    _hold_walks(gtscript.stencil("cuda", externals=dict(c.externals), opt_level=lvl)(c.defs).implementation_ir)
+
+
+@pytest.mark.parametrize("chunk", range(8))
+def test_k_walk_reads_see_the_reference_writes_on_random_programs(chunk):
+    """Random definitions that read temporaries one plane up and down in
+    every iteration order, at opt levels 0 and 3: walks form and keep
+    temporaries on chip, and each holds the reference's order."""
+    rng = np.random.default_rng(2600 + chunk)
+    walks = onchip = 0
+    for seed in range(1500):
+        d = _vertical_program(rng, f"w{chunk}_{seed}", orders=2, init=1.0)
+        try:
+            impl = analysis.analyze(ir_json.definition_from_json(json.loads(json.dumps(
+                corpus_gen.definition_to_json(d)))))
+        except GTScriptSemanticError:
+            continue  # a temporary read before its definition, or ahead of its sweep
+        for lvl in (0, 3):
+            try:
+                w, n = _hold_walks(passes.run_pipeline(impl, opt_level=lvl)[0])
+            except GTScriptSemanticError:
+                continue
+            walks += w
+            onchip += n
+    assert walks >= 5 and onchip >= 5, (walks, onchip)
+
+
+def walk_reads_above_defs(a: Field[np.float64], x: Field[np.float64], o: Field[np.float64]):
+    with computation(PARALLEL), interval(0, -1):
+        o = x[0, 0, 1] + a  # the old x: the next multi-stage writes it
+    with computation(PARALLEL), interval(...):
+        x = a * 2.0
+        t = x + 1.0
+    with computation(PARALLEL), interval(1, None):
+        o = t[0, 0, -1] + o
+
+
+def walk_flat_output_defs(a: Field[np.float64], s: Field[np.float64, IJ], o: Field[np.float64]):
+    with computation(PARALLEL), interval(...):
+        s = a * 2.0
+    with computation(PARALLEL), interval(1, None):
+        o = a + s  # every level sees the top level's s: no walk
+
+
+def walk_gapped_forward_defs(a: Field[np.float64], o: Field[np.float64]):
+    with computation(PARALLEL), interval(...):
+        t = a * 2.0
+    with computation(FORWARD):
+        with interval(0, 1):
+            o = t
+        with interval(2, None):
+            o = t + o[0, 0, -2]
+
+
+def walk_backward_between_defs(a: Field[np.float64], o: Field[np.float64], p: Field[np.float64]):
+    with computation(PARALLEL), interval(...):
+        t = a * 2.0
+    with computation(BACKWARD):
+        with interval(-1, None):
+            o = t
+        with interval(0, -1):
+            o = t + o[0, 0, 1]
+    with computation(PARALLEL), interval(...):
+        p = o + t
+
+
+def walk_reads_the_top_defs(a: Field[np.float64], o: Field[np.float64]):
+    with computation(PARALLEL), interval(...):
+        t = a * 2.0
+    with computation(PARALLEL), interval(...):
+        o = t[0, 0, 1] - t  # the plane above the top reads 0
+
+
+@pytest.mark.parametrize("defs, walks, kinds", [
+    # a later multi-stage writes the plane an earlier one reads above: one
+    # walk, x read before it is written at each level; t kept one level
+    (walk_reads_above_defs, [[0, 0, 0]], {"t": "ring"}),
+    (walk_flat_output_defs, [], {}),  # refused: the 2-D output aliases every level
+    (walk_gapped_forward_defs, [], {"t": "full"}),  # refused: the FORWARD intervals leave a gap
+    (walk_backward_between_defs, [], {"t": "full"}),  # refused: BACKWARD runs down the column
+    # t's top read finds no write, so t stays in memory and the walk would keep
+    # nothing out of it: the loops stay
+    (walk_reads_the_top_defs, [], {"t": "full"}),
+], ids=["reads_above", "flat_output", "gapped_forward", "backward_between", "reads_the_top"])
+def test_k_walk_refusals_and_kept_loops(defs, walks, kinds):
+    """Where the plan walks and where it keeps the loops, and what it keeps
+    on chip; each case holds the reference's order."""
+    for lvl in (0, 3):
+        st = gtscript.stencil("cuda", opt_level=lvl, disable_passes=("interval_splitting",))(defs)
+        sched = st.kernel.module.SCHEDULE
+        assert [[s for _mi, _iv, s in w["units"]] for w in sched["k_walks"]] == walks
+        assert {n: sched["temporaries"][n] for n in kinds} == kinds
+        _hold_walks(st.implementation_ir)
 
 
 _FLOAT_LITERAL = re.compile(r"(?<![\w.])(\d+\.\d*|\d*\.\d+|\d+[eE][-+]?\d+)([eE][-+]?\d+)?(?![\w.])")

@@ -168,7 +168,17 @@ def test_cuda_groups_carry_the_kernels_and_their_schedule():
     assert [k.key for k in cp.group_kernels] == [o.kernel.key for o in cp.group_objects]
     temps = [o.kernel.module.SCHEDULE["temporaries"] for o in cp.group_objects]
     assert temps[0]["adv"] == "reg"  # the first group keeps adv out of device memory
-    assert {temps[1][n] for n in ("a", "b", "c", "d")} == {"full"}  # the second spills them (ROADMAP)
+    # the second walks diffuse, vadv_system's intervals and vadv's forward
+    # sweep down each column at once: only the solver's cp/dp, which the
+    # backward sweep reads, stay in device memory
+    assert sorted(n for n, kind in temps[1].items() if kind == "full") == ["_p4_cp", "_p4_dp"]
+    assert {temps[1][n] for n in ("a", "b", "c", "d", "_p3_gcv", "_p3_gcv_m", "_cse0", "_cse1")} == {"ring"}
+    (walk,) = cp.group_objects[1].kernel.module.SCHEDULE["k_walks"]
+    assert cp.report["group_k_walks"] == [[], [walk]]
+    assert walk["lookahead"] == 1
+    assert [(mi, iv) for mi, iv, _ in walk["units"]] == [
+        (0, "[0, nk)"), (0, "[1, nk)"), (0, "[1, nk)"), (0, "[1, nk - 1)"), (0, "[0, 1)"), (0, "[nk - 1, nk)"),
+        (0, "[0, 1)"), (1, "[1, nk)"), (2, "[nk - 1, nk)")]
     assert all(o.launches == 0 for o in cp.group_objects)  # CPU tensors launch nothing
 
 
