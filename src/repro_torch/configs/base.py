@@ -22,6 +22,14 @@ class MoEConfig:
     load_balance_coef: float = 1e-2
     # number of dense (non-MoE) d_ff units run in parallel with experts
     shared_d_ff: int = 0
+    # the router's scores: 'softmax' (top-k of the softmax, renormalised) or
+    # 'sigmoid' (DeepSeek-V3: top-k of the sigmoid scores plus a selection
+    # bias, weighted by the unbiased scores renormalised over the k and
+    # scaled by ``routed_scale``; ``moe.sigmoid_route``)
+    scoring: str = "softmax"
+    routed_scale: float = 1.0
+    # every expert computes every token routed to it (no capacity clamp)
+    dropless: bool = False
 
 
 @dataclass(frozen=True)
@@ -38,6 +46,19 @@ class SSMConfig:
 
     def n_heads(self, d_model: int) -> int:
         return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3): keys and values come
+    from one ``kv_lora_rank``-wide latent a token, which is what the cache
+    holds, beside one ``qk_rope_head_dim``-wide rotated key all heads share.
+    Queries project straight from the hidden state (no query latent)."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
 
 
 @dataclass(frozen=True)
@@ -68,6 +89,12 @@ class ArchConfig:
     sliding_window: Optional[int] = None  # local attention width
     logit_softcap: Optional[float] = None
     moe: Optional[MoEConfig] = None
+    # latent attention in place of the per-head K/V projections
+    mla: Optional[MLAConfig] = None
+    # a moe family's first layers are dense MLPs of width d_ff
+    n_dense_layers: int = 0
+    # the norms' epsilon (None: each norm's own default)
+    norm_eps: Optional[float] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # encoder-decoder (audio) / vlm frontends

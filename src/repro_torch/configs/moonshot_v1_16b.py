@@ -1,6 +1,11 @@
 """moonshot-v1-16b-a3b [moe] — 48L d_model=2048 16H (kv=16) expert d_ff=1408,
 vocab=163840, 64 experts top-6 + shared expert (Moonlight/DeepSeek-V3-style).
 [hf:moonshotai/Moonlight-16B-A3B; hf]
+
+The reference package's table-derived stand-in, mirrored here: plain
+multi-head attention, a softmax router and no dense first layer.  The
+published model (27 layers, latent attention, the sigmoid router, a dense
+first layer) is ``moonlight_16b_a3b.py``.
 """
 
 from dataclasses import replace

@@ -73,21 +73,25 @@ def flash_attention(
     kv_len=None,
     window: Optional[int] = None,
     cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale`` multiplies the scores (default ``1/sqrt(Dh)``): a model that
+    pads its heads to a width the kernels take keeps its own scale."""
     if is_fake(q):  # a dry run: the output's shape only
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                                   window=window, cap=cap)
+                                   window=window, cap=cap, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention: the flash kernel has no backward, in the reference (its Pallas kernel) or in this "
             "port, so it cannot run where a gradient is wanted; train with attention_impl='chunked' or 'naive'")
-    return prepare(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, cap=cap)()
+    return prepare(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, cap=cap,
+                   scale=scale)()
 
 
 def prepare(q, k, v, *, causal: bool = True, q_offset=0, kv_len=None, window: Optional[int] = None,
-            cap: Optional[float] = None) -> Callable[[], torch.Tensor]:
+            cap: Optional[float] = None, scale: Optional[float] = None) -> Callable[[], torch.Tensor]:
     """Check CUDA arguments, allocate the output and return a callable that
     launches the kernel on them (each call one launch) and returns the output."""
     if not q.is_cuda:
@@ -126,7 +130,7 @@ def prepare(q, k, v, *, causal: bool = True, q_offset=0, kv_len=None, window: Op
         b, sq, skv, h, kh,
         qoff_ptr, qoff, klen_ptr, klen,
         int(causal), int(window is not None), int(window or 0), int(cap is not None), float(cap or 0.0),
-        float(1.0 / np.sqrt(dh)), torch.cuda.current_stream(q.device).cuda_stream,
+        float(1.0 / np.sqrt(dh)) if scale is None else float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernel = KERNEL_BF16 if bf16 else KERNEL
 

@@ -23,12 +23,13 @@ def flash_attention_ref(
     kv_len=None,
     window: Optional[int] = None,
     cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     b, sq, h, dh = q.shape
     kh, skv = k.shape[2], k.shape[1]
     work = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(b, sq, kh, h // kh, dh).to(work)
-    scale = float(1.0 / np.sqrt(dh))
+    scale = float(1.0 / np.sqrt(dh)) if scale is None else float(scale)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(work)) * scale
     if cap is not None:
         s = cap * torch.tanh(s / cap)

@@ -27,9 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import MLAConfig
+from repro_torch.obs import trace as otrace
 from repro_torch.parallel.sharding import is_dtensor, matmul, to_local, with_logical_constraint
 
-from .layers import ParamSpec, rope, softcap
+from .layers import ParamSpec, dense, rmsnorm, rope, rope_pairs, softcap
 
 NEG_INF = -1e30
 
@@ -448,3 +450,146 @@ def make_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int, dtype,
         "v": torch.zeros((batch, max_len, n_kv_heads, head_dim), dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek-V2/V3 MLA) and its latent cache
+# ---------------------------------------------------------------------------
+
+# A random model's scores spread by about 1 (unit-variance q and k over
+# sqrt(Dh)), so over thousands of keys its softmax is nearly flat: attention
+# then adds almost nothing to the residual stream, and nothing downstream
+# depends on what the cache holds.  A trained model's heads are held by a few
+# keys.  MLA's queries are drawn this much wider, so that a random model's
+# scores spread by about this much and a softmax over 7k keys is held by
+# some tens of them.
+MLA_Q_SPREAD = 2.5
+
+
+def mla_spec(d: int, n_heads: int, m: MLAConfig) -> Dict[str, Any]:
+    """MLA's weights, in the (in, ..., out) layout of the other projections:
+    ``wq`` (d, H, nope + rope); ``wkv_a`` (d, latent + rope), the latent and
+    the shared rope key; ``kv_norm`` the latent's RMSNorm; ``wkv_b`` (latent,
+    H, nope + v), each head's key (no rope) and value from the latent; ``wo``
+    (H, v, d)."""
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r = m.kv_lora_rank
+    return {
+        "wq": {"kernel": ParamSpec((d, n_heads, qk), ("embed", "heads", "head_dim"), scale=MLA_Q_SPREAD / np.sqrt(d))},
+        "wkv_a": {"kernel": ParamSpec((d, r + m.qk_rope_head_dim), ("embed", None), scale=1.0 / np.sqrt(d))},
+        "kv_norm": {"scale": ParamSpec((r,), (None,), init="ones")},
+        "wkv_b": {"kernel": ParamSpec((r, n_heads, m.qk_nope_head_dim + m.v_head_dim), (None, "heads", "head_dim"),
+                                      scale=1.0 / np.sqrt(r))},
+        "wo": {"kernel": ParamSpec((n_heads, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                                   scale=1.0 / np.sqrt(n_heads * m.v_head_dim))},
+    }
+
+
+def make_latent_cache(n_layers: int, batch: int, max_len: int, m: MLAConfig, dtype,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """MLA's cache of every layer: the normed latent ``ckv`` (L, B, S,
+    latent) and the rotated shared rope key ``kpe`` (L, B, S, rope); no
+    per-head keys or values."""
+    return {"ckv": torch.zeros((n_layers, batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+            "kpe": torch.zeros((n_layers, batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device)}
+
+
+def write_latent(cache_t: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write ``new`` (B, s, C) into rows ``pos ..`` of a latent cache tensor (B, S, C), in place."""
+    idx = pos + torch.arange(new.shape[1], device=new.device)
+    cache_t.index_copy_(1, idx, new.to(cache_t.dtype))
+
+
+def _attend_expanded(q, k, v, *, impl: str, chunk: int) -> torch.Tensor:
+    """Causal attention of a prompt against its own per-head keys and values
+    (B, S, H, Dq / Dq / Dv), scaled by 1/sqrt(Dq).  The attention paths take
+    one head width for all three: v is padded with zeros to Dq (and, for
+    the flash kernel, all three to the next width it takes, with the scale
+    kept), and the output cut back to Dv."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    if impl == "flash":
+        from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention
+
+        width = min(w for w in HEAD_DIMS if w >= dq)
+        q, k, v = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+        o = flash_attention(q, k, v, causal=True, scale=float(1.0 / np.sqrt(dq)))
+    else:
+        o = attend(q, k, F.pad(v, (0, dq - dv)), impl=impl, causal=True, chunk=chunk)
+    return o[..., :dv]
+
+
+def attend_latent(q_lat, q_pe, ckv, kpe, pos, scale: float) -> torch.Tensor:
+    """One decode step's attention in the absorbed form, over the latent
+    cache: q_lat (B, H, latent) is each head's no-rope query taken through
+    its key up-projection, q_pe (B, H, rope) its rotated query; ckv (B, S,
+    latent) and kpe (B, S, rope) the cache, rows up to ``pos`` (a 0-d
+    tensor, read on the device) valid.  The scores are summed in float32
+    (float64 for float64 inputs); returns the softmax-weighted latent (B, H,
+    latent).  Every allocated row is read (the rows past ``pos`` masked), the
+    latent twice: once for the scores, once for the weighted sum."""
+    ct = torch.promote_types(ckv.dtype, torch.float32)
+    s = torch.bmm(q_lat, ckv.transpose(1, 2)).to(ct) + torch.bmm(q_pe, kpe.transpose(1, 2)).to(ct)
+    valid = torch.arange(ckv.shape[1], device=ckv.device) <= pos
+    p = torch.softmax(torch.where(valid, s * scale, NEG_INF), dim=-1)
+    return torch.bmm(p.to(ckv.dtype), ckv)
+
+
+def mla_attention(params, x, m: MLAConfig, *, rope_theta: float, impl: str, chunk: int = 1024,
+                  eps: Optional[float] = None, cache: Optional[Dict[str, torch.Tensor]] = None):
+    """Multi-head latent attention (DeepSeek-V3), causal.  Returns (out, new_cache).
+
+    q = x·Wq split into q_nope and q_pe (rope); [c_kv, k_pe] = x·Wkv_a,
+    c_kv RMS-normed, k_pe rotated and shared by the heads; [k_nope, v] =
+    c_kv·Wkv_b per head; the score is (q_nope·k_nope + q_pe·k_pe) /
+    sqrt(nope + rope); out = o·Wo.  Rope is ``layers.rope_pairs``.
+
+    ``cache``: {'ckv': (B, Smax, latent), 'kpe': (B, Smax, rope), 'pos': ()},
+    written in place.  A prompt (more than one token, into an empty cache)
+    expands the latent into per-head keys and values and attends with
+    ``impl``; a decode step (one token) takes Wkv_b's key half into the query
+    and its value half into the output (the absorbed form) and attends over
+    the latent cache itself (``attend_latent``), so no per-head key or value
+    is ever held."""
+    if is_dtensor(x):
+        raise NotImplementedError("mla_attention: latent attention does not run under a mesh")
+    b, s, _ = x.shape
+    nope, rp, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    scale = float(1.0 / np.sqrt(nope + rp))
+    probe = otrace.probe()
+    with otrace.device_span("mla.project"):
+        q = _project(x, params["wq"]["kernel"])  # (B, S, H, nope + rope)
+        kva = dense(params["wkv_a"], x)  # (B, S, latent + rope)
+        c_kv = rmsnorm(params["kv_norm"], kva[..., :r], 1e-6 if eps is None else eps)
+        steps = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+        positions = cache["pos"] + steps if cache is not None else steps
+        q_pe = rope_pairs(q[..., nope:], positions, rope_theta)
+        k_pe = rope_pairs(kva[..., None, r:], positions, rope_theta)  # (B, S, 1, rope)
+        new_cache = None
+        if cache is not None:
+            write_latent(cache["ckv"], c_kv, cache["pos"])
+            write_latent(cache["kpe"], k_pe[:, :, 0], cache["pos"])
+            new_cache = {"ckv": cache["ckv"], "kpe": cache["kpe"], "pos": cache["pos"] + s}
+        w_kvb = params["wkv_b"]["kernel"].to(x.dtype)  # (latent, H, nope + v)
+        h = w_kvb.shape[1]
+        decode = cache is not None and s == 1
+        if decode:
+            # q_lat[b, h] = q_nope[b, h] · W_uk[:, h]^T: one product a head
+            q_lat = torch.bmm(q[:, 0, :, :nope].transpose(0, 1), w_kvb[..., :nope].permute(1, 2, 0))
+    if decode:
+        with otrace.device_span("mla.attend"):
+            ckv, kpe = cache["ckv"], cache["kpe"]
+            o_lat = attend_latent(q_lat.transpose(0, 1), q_pe[:, 0], ckv, kpe, cache["pos"], scale)
+        if probe is not None:
+            probe.add("mla.latent_bytes", ckv.shape[0] * ckv.shape[1] * (2 * r + rp) * ckv.element_size())
+            probe.add("mla.decode_calls", 1)
+        with otrace.device_span("mla.project"):
+            # o[b, h] = o_lat[b, h] · W_uv[:, h]
+            o = torch.bmm(o_lat.transpose(0, 1), w_kvb[..., nope:].permute(1, 0, 2)).transpose(0, 1)
+            return out_project(params, o[:, None]), new_cache
+    with otrace.device_span("mla.attend"):
+        kv = _project(c_kv, w_kvb)  # (B, S, H, nope + v)
+        k = torch.cat([kv[..., :nope], k_pe.expand(b, s, h, rp)], dim=-1)
+        qf = torch.cat([q[..., :nope], q_pe], dim=-1)
+        o = _attend_expanded(qf, k, kv[..., nope:], impl=impl, chunk=chunk)
+    with otrace.device_span("mla.project"):
+        return out_project(params, o), new_cache

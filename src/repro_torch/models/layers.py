@@ -179,12 +179,17 @@ def layernorm(params, x, eps: float = 1e-5):
     return (y * params["scale"].to(ct) + params["bias"].to(ct)).to(dt)
 
 
-def make_norm(kind: str):
+def make_norm(kind: str, eps: Optional[float] = None):
+    """(spec, norm) of ``kind``; ``eps`` replaces the norm's default epsilon."""
     if kind == "rmsnorm":
-        return rmsnorm_spec, rmsnorm
-    if kind == "layernorm":
-        return layernorm_spec, layernorm
-    raise ValueError(kind)
+        spec, fn = rmsnorm_spec, rmsnorm
+    elif kind == "layernorm":
+        spec, fn = layernorm_spec, layernorm
+    else:
+        raise ValueError(kind)
+    if eps is None:
+        return spec, fn
+    return spec, lambda params, x: fn(params, x, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +299,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding as DeepSeek-V3's modelling code applies it to the
+    rope part of MLA's queries and keys: the rotated pairs are adjacent
+    channels (2i, 2i+1), which are first de-interleaved (even channels, then
+    odd) and then rotated as halves by ``rope``.  The result stays in the
+    de-interleaved order, for queries and keys alike, so their products are
+    those of rotating each adjacent pair in place.  x: (..., S, H, Dh)."""
+    dh = x.shape[-1]
+    x = x.unflatten(-1, (dh // 2, 2)).transpose(-1, -2).flatten(-2)
+    return rope(x, positions, theta)
 
 
 def sinusoidal_positions(seq: int, d: int) -> np.ndarray:

@@ -12,7 +12,7 @@ the enc-dec audio model and the vlm.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.obs import trace as otrace
 from repro_torch.parallel.sharding import is_dtensor, matmul, spmd_scope, with_logical_constraint
 
 from . import attention as attn_mod
@@ -48,7 +49,7 @@ from .ssm import make_ssd_cache
 _FLOAT32_KEYS = frozenset({
     "ln", "ln1", "ln2", "ln_x", "final_norm", "enc_norm", "router",
     "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate", "lambda_param",
-    "A_log", "D", "dt_bias", "norm_scale",
+    "A_log", "D", "dt_bias", "norm_scale", "kv_norm",
 })
 
 
@@ -150,7 +151,7 @@ class LM:
         reference constrains them, unless ``constrain`` is False (the loss
         takes them sharded on the vocab, as the product leaves them)."""
         cfg = self.cfg
-        _, norm = make_norm(cfg.norm)
+        _, norm = make_norm(cfg.norm, cfg.norm_eps)
         # the whole sequence of the batch's rows, against the vocab-sharded
         # head: the logits leave the product sharded on the vocab (DTensor
         # would otherwise pick a layout that replicates them on the batch)
@@ -226,8 +227,9 @@ class LM:
     def make_cache(self, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
         """An empty cache for ``batch`` sequences of up to ``max_len`` tokens,
         in ``cfg.dtype`` on ``device``, in the reference's layout (each layer
-        stack's state stacked along a leading axis): KV caches, and the conv
-        tails and recurrent states of the ssm and rglru layers.  ``prefill``
+        stack's state stacked along a leading axis): KV caches (MLA: the
+        latent cache, ``attention.make_latent_cache``), and the conv tails
+        and recurrent states of the ssm and rglru layers.  ``prefill``
         and ``decode_step`` write it in place."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
@@ -241,6 +243,9 @@ class LM:
             return {n: t.new_zeros(lead + tuple(t.shape)) for n, t in base.items()}
 
         pos = torch.zeros((), dtype=torch.int32, device=device)
+        if cfg.mla is not None:
+            return {"layers": attn_mod.make_latent_cache(cfg.n_layers, batch, max_len, cfg.mla, dt, device),
+                    "pos": pos}
         if cfg.family == "ssm":
             return {"layers": stacked(make_ssd_cache(batch, cfg.d_model, cfg.ssm, dt, device), cfg.n_layers),
                     "pos": pos}
@@ -271,7 +276,8 @@ class LM:
 
     def decode_step(self, params, batch, cache) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One-token step: batch['tokens'] is (B, 1) (enc-dec: with 'enc_kv' or 'frames')."""
-        return self._serve(params, batch, cache)
+        with otrace.device_span("lm.decode_step"):
+            return self._serve(params, batch, cache)
 
     def _serve(self, params, batch, cache):
         with spmd_scope():
@@ -349,6 +355,20 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
     fn = local_map(body, out_placements=tok, in_placements=(lg_pl, tok), device_mesh=mesh, redistribute_inputs=True)
     return fn(logits, labels)
+
+
+def cuda_graph(fn: Callable[[], Any]) -> Callable[[], None]:
+    """``fn`` captured once as a CUDA graph on the current device; returns
+    the graph's replay.  ``fn`` must not wait on the host (a decode step over
+    a cache whose position is a device tensor, as ``LM.decode_step`` is, with
+    the MoE's few-token dispatch) and must work on tensors that outlive the
+    graph; its results are the capture's tensors, which each replay
+    overwrites.  Run ``fn`` once before, so that lazy set-up (cuBLAS handles
+    and workspaces) is done outside the capture."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def build_model(cfg: ArchConfig, rglru_scan: Scan = rglru_ops.rglru_scan) -> LM:

@@ -7,6 +7,17 @@ last slot with zero weight, as the reference's overflow slot).  The expert
 products are batched matrix products over (B, E, C, D) buffers.  Aux
 losses follow Switch/ST-MoE.
 
+A DeepSeek-V3 router (``cfg.scoring == "sigmoid"``, ``sigmoid_route``)
+chooses each token's k experts by sigmoid score plus a selection bias and
+weights them by the unbiased scores, renormalised and scaled.  A dropless
+layer (``cfg.dropless``, ``_dropless``) has every expert compute every token
+routed to it, at any batch and length: a decode step (one token a row, any
+batch) runs every expert on all of its tokens, weighted by the gates (zero
+where not routed), so nothing waits on the host; a prompt sorts the
+assignments by expert and runs each expert on its own rows, after one read
+of the counts on the host.  The router taps (``obs.trace.tap``) its choice,
+``moe.choice``.
+
 Under a mesh whose 'model' axis divides E and whose data axes divide B, the
 dispatch is expert-parallel (``_dispatch_ffn_combine``, the reference's
 ``shard_map`` variant): x stays replicated over 'model', each model rank
@@ -23,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.obs import trace as otrace
 from repro_torch.parallel.sharding import axis_size, is_dtensor, matmul, with_logical_constraint
 
 from .layers import ParamSpec, mlp, mlp_spec
@@ -31,8 +43,14 @@ from .layers import ParamSpec, mlp, mlp_spec
 def moe_spec(d: int, cfg: MoEConfig, activation: str, use_bias: bool) -> Dict[str, Any]:
     e, f = cfg.n_experts, cfg.d_ff_expert
     mult_gated = activation in ("swiglu", "geglu")
+    router: Dict[str, Any] = {"kernel": ParamSpec((d, e), ("embed", "experts"), dtype="float32")}
+    if cfg.scoring == "sigmoid":
+        # the selection bias: trained to balance the experts' load, drawn
+        # here at a spread that moves the choice of some experts near the
+        # k-th and leaves each expert's load within about a fifth of even
+        router["bias"] = ParamSpec((e,), ("experts",), dtype="float32", scale=SELECTION_BIAS_SPREAD)
     spec: Dict[str, Any] = {
-        "router": {"kernel": ParamSpec((d, e), ("embed", "experts"), dtype="float32")},
+        "router": router,
         "wi": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
         "wo": ParamSpec((e, f, d), ("experts", "mlp", "embed")),
     }
@@ -41,6 +59,9 @@ def moe_spec(d: int, cfg: MoEConfig, activation: str, use_bias: bool) -> Dict[st
     if cfg.shared_d_ff:
         spec["shared"] = mlp_spec(d, cfg.shared_d_ff, activation, use_bias)
     return spec
+
+
+SELECTION_BIAS_SPREAD = 0.02
 
 
 def _expert_ffn(params, x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -148,35 +169,120 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.topk(probs, k, dim=-1)
 
 
+def sigmoid_route(params, x: torch.Tensor, cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router (``noaux_tc`` with one group): scores
+    sigmoid(x·Wg) in float32 (float64 for float64 activations); the experts
+    are the top k of scores + bias; their weights are the unbiased scores,
+    normalised over the k and times ``routed_scale``.  Returns (ids, weights),
+    each (B, S, k)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    scores = torch.sigmoid(matmul(x.to(ct), params["router"]["kernel"].to(ct)))
+    ids = torch.topk(scores + params["router"]["bias"].to(ct), cfg.top_k, dim=-1).indices
+    w = torch.gather(scores, -1, ids)
+    return ids, w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
+
+
+def _swiglu_bmm(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """x: (E, N, D) → (E, N, D), expert e's FFN on row e."""
+    h = torch.bmm(x, params["wi"].to(x.dtype))
+    if "wg" in params:
+        g = torch.bmm(x, params["wg"].to(x.dtype))
+        h = (F.silu(g) if activation == "swiglu" else F.gelu(g, approximate="tanh")) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, params["wo"].to(x.dtype))
+
+
+def _dropless(params, x: torch.Tensor, ids: torch.Tensor, gates: torch.Tensor, activation: str) -> torch.Tensor:
+    """Every expert on every token routed to it; (B, S, D) in the gates' dtype."""
+    b, s, d = x.shape
+    e, k = params["wi"].shape[0], ids.shape[-1]
+    xt, it, gt = x.reshape(b * s, d), ids.reshape(b * s, k), gates.reshape(b * s, k)
+    n = b * s
+    if s == 1:
+        # a decode step, at any batch: each expert on all n tokens, weighted
+        # by its gate (0 where not routed), with no host read, so that the
+        # step can be a CUDA graph.  The products cost n·E/k times the routed
+        # ones, which at 64 tokens and 64 experts take less time than reading
+        # the experts' weights, as a decode step does anyway
+        dense_gates = torch.zeros((n, e), dtype=gt.dtype, device=x.device).scatter_(1, it, gt)
+        y = _swiglu_bmm(params, xt.expand(e, n, d), activation)
+        return torch.einsum("ne,end->nd", dense_gates, y.to(gt.dtype)).reshape(b, s, d)
+    # a prompt: the assignments sorted by expert, each expert on its own rows
+    order = torch.argsort(it.reshape(-1), stable=True)
+    counts = torch.bincount(it.reshape(-1), minlength=e).tolist()  # the one host read, in prefill only
+    rows = xt[order // k]
+    ys = torch.empty_like(rows)
+    start = 0
+    for ex, cnt in enumerate(counts):
+        if cnt:
+            one = {key: params[key][ex:ex + 1] for key in ("wi", "wg", "wo") if key in params}
+            ys[start:start + cnt] = _swiglu_bmm(one, rows[None, start:start + cnt], activation)[0]
+            start += cnt
+    contrib = ys.to(gt.dtype) * gt.reshape(-1)[order, None]
+    # back to (token, k) order, each token's k contributions summed in a fixed order
+    return torch.empty_like(contrib).index_copy_(0, order, contrib).reshape(n, k, d).sum(1).reshape(b, s, d)
+
+
+def _count_routing(params, ids: torch.Tensor, e: int) -> None:
+    """Add a layer's routing to the armed probe: tokens by expert, distinct
+    experts touched and the bytes of their weights (all on the device, with
+    no host read, so that a CUDA graph can hold it)."""
+    probe = otrace.probe()
+    if probe is None:
+        return
+    flat = ids.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(0, flat, torch.ones_like(flat))
+    touched = (counts > 0).sum()
+    per_expert = sum(params[key][0].numel() * params[key].element_size() for key in ("wi", "wg", "wo") if key in params)
+    probe.add("moe.layer_calls", 1)
+    probe.add("moe.expert_tokens", counts)
+    probe.add("moe.experts_touched", touched)
+    probe.add("moe.expert_bytes", touched * per_expert)
+
+
 def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, activation: str, *,
               capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) → (out (B, S, D), aux-loss dict)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-
-    # ---- routing (float32 for numerics, float64 for float64 activations;
-    # the router is a float32 leaf)
     ct = torch.promote_types(x.dtype, torch.float32)
-    logits = matmul(x.to(ct), params["router"]["kernel"].to(ct))  # (B, S, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = _top_k(probs, k)  # (B, S, k)
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    with otrace.device_span("moe.route"):
+        if cfg.scoring == "sigmoid":
+            expert_idx, gate_vals = sigmoid_route(params, x, cfg)
+            otrace.tap("moe.choice", expert_idx)
+            zero = torch.zeros((), dtype=ct, device=x.device)
+            # the selection bias balances the load: no auxiliary loss
+            aux = {"load_balance_loss": zero, "router_z_loss": zero}
+        else:
+            # float32 for numerics, float64 for float64 activations; the
+            # router is a float32 leaf
+            logits = matmul(x.to(ct), params["router"]["kernel"].to(ct))  # (B, S, E)
+            probs = torch.softmax(logits, dim=-1)
+            gate_vals, expert_idx = _top_k(probs, k)  # (B, S, k)
+            gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
 
-    # ---- aux losses (Switch/ST-MoE)
-    me = probs.mean(dim=(0, 1))  # (E,)
-    ce = F.one_hot(expert_idx, e).to(ct).sum(dim=2).mean(dim=(0, 1))
-    load_balance = e * torch.sum(me * ce) / k
-    router_z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    aux = {
-        "load_balance_loss": cfg.load_balance_coef * load_balance,
-        "router_z_loss": cfg.router_z_coef * router_z,
-    }
+            # aux losses (Switch/ST-MoE)
+            me = probs.mean(dim=(0, 1))  # (E,)
+            ce = F.one_hot(expert_idx, e).to(ct).sum(dim=2).mean(dim=(0, 1))
+            load_balance = e * torch.sum(me * ce) / k
+            router_z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+            aux = {
+                "load_balance_loss": cfg.load_balance_coef * load_balance,
+                "router_z_loss": cfg.router_z_coef * router_z,
+            }
+    _count_routing(params, expert_idx, e)
 
-    # ---- row-local sort-based dispatch with capacity clamp
-    if capacity is None:
-        capacity = int(cfg.capacity_factor * s * k / e + 1)
-    capacity = min(capacity, s)
-    out = _dispatch_ffn_combine(params, x, expert_idx, gate_vals, capacity, e, activation)
+    with otrace.device_span("moe.experts"):
+        if cfg.dropless:
+            out = _dropless(params, x, expert_idx, gate_vals, activation)
+        else:
+            # row-local sort-based dispatch with capacity clamp
+            if capacity is None:
+                capacity = int(cfg.capacity_factor * s * k / e + 1)
+            capacity = min(capacity, s)
+            out = _dispatch_ffn_combine(params, x, expert_idx, gate_vals, capacity, e, activation)
     if cfg.shared_d_ff:
-        out = out + mlp(params["shared"], x, activation).to(out.dtype)
+        with otrace.device_span("moe.shared"):
+            out = out + mlp(params["shared"], x, activation).to(out.dtype)
     return out.to(x.dtype), aux

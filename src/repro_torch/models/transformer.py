@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.obs import trace as otrace
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -68,14 +69,17 @@ def _remat(fn, remat: bool, cache=None):
 # ---------------------------------------------------------------------------
 
 
-def dense_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
+def dense_block_spec(cfg: ArchConfig, dense_ffn: bool = False) -> Dict[str, Any]:
+    """One layer: attention (per-head K/V, or MLA where ``cfg.mla``) and the
+    FFN, MoE in a moe family unless ``dense_ffn`` (its leading dense layers)."""
     norm_spec, _ = make_norm(cfg.norm)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     spec = {
         "ln1": norm_spec(d),
-        "attn": attn_mod.attention_spec(d, cfg.n_heads, cfg.n_kv_heads, hd, cfg.use_bias),
+        "attn": (attn_mod.mla_spec(d, cfg.n_heads, cfg.mla) if cfg.mla is not None
+                 else attn_mod.attention_spec(d, cfg.n_heads, cfg.n_kv_heads, hd, cfg.use_bias)),
     }
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not dense_ffn:
         spec["moe"] = moe_mod.moe_spec(d, cfg.moe, cfg.activation, cfg.use_bias)
     else:
         spec["mlp"] = mlp_spec(d, cfg.d_ff, cfg.activation, cfg.use_bias)
@@ -85,22 +89,28 @@ def dense_block_spec(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _ffn(params, h, cfg: ArchConfig):
-    if cfg.family == "moe":
+    if "moe" in params:
         return moe_mod.moe_layer(params["moe"], h, cfg.moe, cfg.activation)
     return mlp(params["mlp"], h, cfg.activation), {}
 
 
 def dense_block(params, x, cfg: ArchConfig, *, cache=None, window=None, impl=None):
-    _, norm = make_norm(cfg.norm)
+    _, norm = make_norm(cfg.norm, cfg.norm_eps)
     impl = impl or cfg.attention_impl
     h = norm(params["ln1"], x)
     if not cfg.parallel_block:
         # the sequence sharding pinned on the norm output
         h = with_logical_constraint(h, ("batch", "attn_seq", "embed"))
-    attn_out, new_cache = attn_mod.self_attention(
-        params["attn"], h, n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
-        impl=impl, window=window, chunk=cfg.attention_chunk, cache=cache,
-    )
+    if cfg.mla is not None:
+        attn_out, new_cache = attn_mod.mla_attention(
+            params["attn"], h, cfg.mla, rope_theta=cfg.rope_theta, impl=impl, chunk=cfg.attention_chunk,
+            eps=cfg.norm_eps, cache=cache,
+        )
+    else:
+        attn_out, new_cache = attn_mod.self_attention(
+            params["attn"], h, n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            impl=impl, window=window, chunk=cfg.attention_chunk, cache=cache,
+        )
     if cfg.parallel_block:
         ff_out, aux = _ffn(params, h, cfg)
         x = x + attn_out + ff_out
@@ -162,14 +172,16 @@ def decoder_stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
             kind = pat[r % len(pat)]
             spec[f"tail_{r}_{kind}"] = rglru_block_spec(cfg) if kind == "rglru" else dense_block_spec(cfg)
         return spec
-    return {"blocks": stack_specs(dense_block_spec(cfg), cfg.n_layers)}
+    n_dense = cfg.n_dense_layers
+    return {"blocks": (stack_specs(dense_block_spec(cfg, dense_ffn=True), n_dense)
+                       + stack_specs(dense_block_spec(cfg), cfg.n_layers - n_dense))}
 
 
 def _layer_cache(tree: Dict[str, torch.Tensor], i, pos) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s slice of a stacked cache subtree (the subtree itself when
     ``i`` is None); a KV cache also gets the global position."""
     c = dict(tree) if i is None else {n: t[i] for n, t in tree.items()}
-    if "k" in c:
+    if "k" in c or "ckv" in c:
         c["pos"] = pos
     return c
 
@@ -178,7 +190,9 @@ def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, remat: bool = True,
                   scan: rglru_mod.Scan = rglru_ops.rglru_scan) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (x, aux_losses_summed).  ``cache`` is the model's (``LM.make_cache``,
     its 'pos' the tokens already in it), written in place; ``scan`` runs the
-    hybrid's RG-LRU recurrence over a prompt."""
+    hybrid's RG-LRU recurrence over a prompt.  The dense and MoE stacks tap
+    (``obs.trace.tap``) each layer's input, ``layer.input``, and their
+    output, ``stack.output``."""
     pos = None if cache is None else cache["pos"]
 
     def layer_cache(*keys, i=None):
@@ -230,10 +244,13 @@ def decoder_stack(params, x, cfg: ArchConfig, *, cache=None, remat: bool = True,
     step = _remat(dense_layer, remat, cache)
     auxes: List[Dict[str, torch.Tensor]] = []
     for i, lp in enumerate(params["blocks"]):
+        otrace.tap("layer.input", x)
         x, aux = step(lp, x, layer_cache("layers", i=i))
         auxes.append(aux)
+    otrace.tap("stack.output", x)
     if cfg.family != "moe":
         return x, {}
+    auxes = [a for a in auxes if a]  # the leading dense layers have none
     return x, {k: torch.stack([a[k] for a in auxes]).sum() for k in ("load_balance_loss", "router_z_loss")}
 
 

@@ -499,3 +499,142 @@ class capture:
             _local.reset(self._token)
             self._token = None
         return False
+
+
+# ---------------------------------------------------------------------------
+# device probe: spans timed on the device, and counts made there
+# ---------------------------------------------------------------------------
+
+
+class DeviceProbe:
+    """Device time of named spans and counts the model adds, while armed
+    (:func:`arm_probe`); nothing is recorded, and nothing synchronises, while
+    no probe is armed.
+
+    On the card each :meth:`span` records a CUDA event at its bounds on the
+    current stream (read once, by :meth:`result`), elsewhere the host clock.
+    The events are external ones, so that a probe armed while a CUDA graph
+    is captured puts them into the graph: each replay then records them
+    anew, and :meth:`result` after a replay reads that replay.
+    :meth:`add` sums a count: a Python number, or a device tensor that stays
+    on the device until :meth:`result` reads it, so counting never waits for
+    the device.  A span is also the tracer's :func:`span` of the same name
+    (a ``torch.profiler`` range while a profiler records)."""
+
+    def __init__(self, device):
+        import torch
+
+        self._torch = torch
+        self.card = torch.device(device).type == "cuda"
+        self.intervals: Dict[str, List[Any]] = {}
+        self.counts: Dict[str, Any] = {}
+
+    def _mark(self):
+        if not self.card:
+            return monotonic()
+        ev = self._torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        return ev
+
+    def span(self, name: str):
+        return _ProbeSpan(self, name)
+
+    def add(self, name: str, value: Any) -> None:
+        self.counts[name] = self.counts[name] + value if name in self.counts else value
+
+    def result(self) -> Dict[str, Any]:
+        """``seconds`` and ``calls`` by span name, and ``counts`` (a list
+        for a tensor count, else a number); synchronises once."""
+        if self.card:
+            self._torch.cuda.synchronize()
+
+        def seconds(a, b):
+            return a.elapsed_time(b) / 1e3 if self.card else b - a
+
+        def plain(v):
+            return v.tolist() if isinstance(v, self._torch.Tensor) else v
+
+        return {"clock": "cuda_events" if self.card else "host",
+                "seconds": {n: sum(seconds(a, b) for a, b in iv) for n, iv in self.intervals.items()},
+                "calls": {n: len(iv) for n, iv in self.intervals.items()},
+                "counts": {n: plain(v) for n, v in self.counts.items()}}
+
+
+class _ProbeSpan:
+    __slots__ = ("probe", "name", "_span", "_start")
+
+    def __init__(self, probe: DeviceProbe, name: str):
+        self.probe, self.name = probe, name
+
+    def __enter__(self) -> "_ProbeSpan":
+        self._span = span(self.name)
+        self._span.__enter__()
+        self._start = self.probe._mark()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        self.probe.intervals.setdefault(self.name, []).append((self._start, self.probe._mark()))
+        self._span.__exit__(*exc)
+        return False
+
+
+_probe: Optional[DeviceProbe] = None
+
+
+def arm_probe(device) -> DeviceProbe:
+    """Arm a fresh process-wide :class:`DeviceProbe` on ``device``; returns it."""
+    global _probe
+    _probe = DeviceProbe(device)
+    return _probe
+
+
+def disarm_probe() -> Optional[DeviceProbe]:
+    """Disarm the probe; returns it (None where none was armed)."""
+    global _probe
+    p, _probe = _probe, None
+    return p
+
+
+def probe() -> Optional[DeviceProbe]:
+    """The armed probe, or None."""
+    return _probe
+
+
+def device_span(name: str):
+    """:func:`span` of ``name``, also timed on the device while a probe is armed."""
+    p = _probe
+    return span(name) if p is None else p.span(name)
+
+
+# ---------------------------------------------------------------------------
+# taps: tensors the model names on its way, handed to a sink while one is set
+# ---------------------------------------------------------------------------
+
+
+_sink = None
+
+
+class tapping:
+    """While inside, each :func:`tap` hands its name and tensor to
+    ``sink(name, tensor)`` (a check keeping some rows of the model's
+    intermediate values, on the device, for a reference to start from).
+    Outside, :func:`tap` is one read of a module global."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def __enter__(self) -> "tapping":
+        global _sink
+        self._old, _sink = _sink, self.sink
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        global _sink
+        _sink = self._old
+        return False
+
+
+def tap(name: str, tensor: Any) -> None:
+    """Hand ``tensor`` to the sink of the innermost :class:`tapping`, if any."""
+    if _sink is not None:
+        _sink(name, tensor)

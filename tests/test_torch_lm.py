@@ -250,12 +250,33 @@ def test_carried_weights_and_caches_default_to_the_card():
 # ---------------------------------------------------------------------------
 
 
+def _port_only_fields(cls, ref_cls):
+    """The fields the port's config class has and the reference's lacks (the
+    latent attention, router and dense-layer options), with their defaults."""
+    ref_names = {f.name for f in dataclasses.fields(ref_cls)}
+    return {f.name: f.default for f in dataclasses.fields(cls) if f.name not in ref_names}
+
+
 def test_configs_are_the_reference_configs():
+    """Every registered config is the reference's, field for field, and
+    holds each field the port adds at its default (today's behaviour)."""
+    import repro.configs.base as r_base
+
+    from repro_torch.configs import base as t_base
+
+    extra_arch = _port_only_fields(t_base.ArchConfig, r_base.ArchConfig)
+    extra_moe = _port_only_fields(t_base.MoEConfig, r_base.MoEConfig)
+    assert set(extra_arch) == {"mla", "n_dense_layers", "norm_eps"}
+    assert set(extra_moe) == {"scoring", "routed_scale", "dropless"}
     assert list_archs() == r_list_archs()
     for name in list_archs():
         for which in ("full", "reduced"):
             r_cfg, t_cfg = getattr(r_get_arch(name), which), getattr(get_arch(name), which)
-            assert dataclasses.asdict(r_cfg) == dataclasses.asdict(t_cfg), (name, which)
+            t_dict = dataclasses.asdict(t_cfg)
+            assert {k: t_dict.pop(k) for k in extra_arch} == extra_arch, (name, which)
+            if t_dict["moe"] is not None:
+                assert {k: t_dict["moe"].pop(k) for k in extra_moe} == extra_moe, (name, which)
+            assert dataclasses.asdict(r_cfg) == t_dict, (name, which)
 
 
 @pytest.mark.parametrize("arch", sorted(r_list_archs()))

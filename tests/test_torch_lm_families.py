@@ -266,14 +266,15 @@ def test_moe_layer_matches_reference(arch, capacity):
     assignments over 4-8 experts drops tokens) and the shared expert."""
     cfg = r_get_arch(arch).reduced
     r_p, t_p = _module_params(r_moe.moe_spec, cfg.d_model, cfg.moe, cfg.activation, cfg.use_bias)
+    t_moe_cfg = get_arch(arch).reduced.moe  # the port's config of the same layer
     x = _rand((2, 12, cfg.d_model), 7)
     r_out, r_aux = r_moe.moe_layer(r_p, jnp.asarray(x), cfg.moe, cfg.activation, capacity=capacity)
-    t_out, t_aux = t_moe.moe_layer(t_p, torch.from_numpy(x), cfg.moe, cfg.activation, capacity=capacity)
+    t_out, t_aux = t_moe.moe_layer(t_p, torch.from_numpy(x), t_moe_cfg, cfg.activation, capacity=capacity)
     _near(t_out, r_out)
     for k in ("load_balance_loss", "router_z_loss"):
         _near(t_aux[k], r_aux[k])
     # the clamp: with capacity 3 some token loses an expert, and its output differs from the dropless one
-    dropless, _ = t_moe.moe_layer(t_p, torch.from_numpy(x), cfg.moe, cfg.activation, capacity=12)
+    dropless, _ = t_moe.moe_layer(t_p, torch.from_numpy(x), t_moe_cfg, cfg.activation, capacity=12)
     assert torch.equal(t_out, dropless) == (capacity is None)
 
 
@@ -284,7 +285,8 @@ def test_moe_dropped_tokens_get_only_the_shared_expert():
     cfg = dataclasses.replace(r_get_arch("phi3.5-moe-42b-a6.6b").reduced.moe, n_experts=2, top_k=1)
     _, t_p = _module_params(r_moe.moe_spec, 16, cfg, "swiglu", False)
     x = torch.from_numpy(_rand((1, 6, 16), 8))
-    out, _ = t_moe.moe_layer(t_p, x, cfg, "swiglu", capacity=1)
+    t_cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").reduced.moe, n_experts=2, top_k=1)
+    out, _ = t_moe.moe_layer(t_p, x, t_cfg, "swiglu", capacity=1)
     assert int((out.abs().sum(-1) > 0).sum()) <= 2
     assert int((out.abs().sum(-1) == 0).sum()) >= 4
 
