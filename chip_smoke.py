@@ -158,7 +158,17 @@ Phases, in order; any failure exits non-zero before the result line:
    and the default (M2, within 1e-13), each launched once; and the vertical
    flux divergence (a half-level flux temporary read one plane up in the
    PARALLEL interval that writes it) at 256 x 256 x 80 float64 (M3), its
-   kernel against its plain module (1e-12), timed beside its bound;
+   kernel against its plain module (1e-12), timed beside its bound; (N),
+   after path M: the latent-attention decode kernel (``path_n``) at
+   ``moonlight.decode7k``'s shape (64 sequences, Moonlight-16B-A3B's 16
+   heads, latent 512 + rope 64, 7184 rows, bf16), through the model's
+   ``attend_latent`` at pos 7168 and 7183 with the rows past pos NaN, held
+   against the plain formula and the float64 answer at the card tests'
+   tolerances; then a decode step of the published model at full depth (bf16
+   weights drawn from a seed, a seeded cache) with every launch count zeroed
+   just before it: one launch of the kernel a layer and nothing else
+   hand-written or generated, and the probe's byte and call counts against
+   the hand count;
 5. times: every kernel of the paths by CUDA events beside its plain version,
    the one PyTorch call that computes the same function where there is one
    (euler: ``torch.add``; diffuse: ``conv3d``; flash attention:
@@ -176,7 +186,10 @@ Phases, in order; any failure exits non-zero before the result line:
    version, ``scaled_dot_product_attention`` (KV heads expanded, the window
    as an explicit boolean mask) and its bound; after path I, its group
    kernels (one-member and member-batched) and hdiff at a rank's tile;
-   after path K, the flash and RG-LRU kernels at a rank's shapes there.
+   after path K, the flash and RG-LRU kernels at a rank's shapes there;
+   in path N, the latent decode kernel at pos 7175 beside the plain
+   formula, ``scaled_dot_product_attention`` on the absorbed form (one KV
+   head of width 576, values 512) and its byte bound.
 
 The corpus programs the cuda backend rejects must be exactly those the
 reference's Pallas limit rejects.
@@ -258,6 +271,13 @@ J_SCAN = (1, 4096, 2560)  # one microbatch's RG-LRU scan
 J_SCAN_REL = 1e-5  # (da, db, dh0) against autograd through a float64 loop, of the largest
 J_MODEL_REL = 1e-5  # a leaf's gradient through the kernel against the plain scan's, of its largest
 J_RGLRU_LEAVES = ("w_x", "conv_w", "w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate", "lambda_param")
+# path N: the latent-attention decode kernel at moonlight.decode7k's shape:
+# 64 sequences, 7184 allocated rows, pos 7168 .. 7183 (the cell's 16 steps)
+N_BATCH, N_ROWS, N_POS, N_TIMED_POS = 64, 7184, (7168, 7183), 7175
+# the card tests' tolerances (tests/test_torch_latent_decode.py), of the
+# largest output: against the float64 answer (bf16 P and output), and
+# against the plain formula (which rounds its scores to bf16)
+N_EXACT_REL, N_PLAIN_REL = 2.0 ** -7, 2e-2
 # path K: the sharded half, four ranks on the one card (gloo through pinned
 # host buffers: ``parallel/staged.py``).  K1: Moonlight-16B-A3B at full width,
 # bf16 weights drawn directly, depth cut to K1_LAYERS, mesh (1, 4): 16 of the
@@ -2035,6 +2055,140 @@ def path_m(card: str) -> list:
              "launches_path_m": sum(launched.values()) + m3_launches}]
 
 
+def path_n(card: str) -> list:
+    """Path N (after path M): the latent-attention decode kernel
+    (``kernels/latent_attention``) at ``moonlight.decode7k``'s shape: the
+    model's ``attend_latent`` at ``N_POS`` with the rows past pos NaN, one
+    launch each, held against the plain formula on rows 0 .. pos and the
+    float64 answer; the kernel timed at ``N_TIMED_POS`` by CUDA events
+    beside the plain formula, ``scaled_dot_product_attention`` and its
+    bound; a decode step of Moonlight-16B-A3B at full depth with every
+    launch count zeroed just before it, its launches and the probe's counts
+    read exactly.  Returns the kernel's row.  Alone:
+    ``chip_smoke.path_n(card)`` builds the kernel first."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.moonlight_16b_a3b import FULL
+    from repro_torch.core import codegen_cuda
+    from repro_torch.kernels.latent_attention import ops as latent_ops
+    from repro_torch.kernels.latent_attention.ref import attend_latent_ref
+    from repro_torch.models import attention, build_model
+    from repro_torch.obs import trace as otrace
+
+    dev = torch.device("cuda")
+    m, h = FULL.mla, FULL.n_heads
+    lat, rope = m.kv_lora_rank, m.qk_rope_head_dim
+    scale = float((m.qk_nope_head_dim + rope) ** -0.5)
+    gen = torch.Generator(device=dev)
+
+    def normal(shape, std, seed):
+        gen.manual_seed(seed)
+        return (std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    # queries spread as the model's (scores of a few units), a cache of unit rows
+    q_lat, q_pe = normal((N_BATCH, h, lat), 1.5, 41), normal((N_BATCH, h, rope), 1.5, 42)
+    ckv, kpe = normal((N_BATCH, N_ROWS, lat), 1.0, 43), normal((N_BATCH, N_ROWS, rope), 1.0, 44)
+    shape = f"B {N_BATCH}, {h} heads, latent {lat} + rope {rope}, {N_ROWS} rows, bfloat16"
+    worst = 0.0
+    for p in N_POS:
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        nan_ckv, nan_kpe = ckv.clone(), kpe.clone()
+        nan_ckv[:, p + 1:], nan_kpe[:, p + 1:] = float("nan"), float("nan")
+        before = latent_ops.KERNEL.launches
+        got = attention.attend_latent(q_lat, q_pe, nan_ckv, nan_kpe, pos, scale)
+        torch.cuda.synchronize()
+        if latent_ops.KERNEL.launches != before + 1:
+            raise AssertionError(f"latent_decode at pos {p}: {latent_ops.KERNEL.launches - before} launches, not 1")
+        del nan_ckv, nan_kpe
+        rows = slice(0, p + 1)
+        plain = attend_latent_ref(q_lat, q_pe, ckv[:, rows], kpe[:, rows], pos, scale)
+        exact = attend_latent_ref(*(t.double() for t in (q_lat, q_pe, ckv[:, rows], kpe[:, rows])), pos, scale)
+        big = float(exact.abs().max())
+        err, err_plain = float((got.double() - exact).abs().max()), float((plain.double() - exact).abs().max())
+        diff = float((got.float() - plain.float()).abs().max())
+        log(f"check latent_decode {shape}, pos {p} (NaN past it): max_abs_err {err:.3e} from the float64 answer "
+            f"(atol {N_EXACT_REL * big:.3e}; the plain formula's {err_plain:.3e}), {diff:.3e} from the plain "
+            f"formula (atol {N_PLAIN_REL * big:.3e}); outputs up to {big:.3f}")
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got.double(), exact, rtol=N_EXACT_REL, atol=N_EXACT_REL * big)
+                and torch.allclose(got.float(), plain.float(), rtol=N_PLAIN_REL, atol=N_PLAIN_REL * big)):
+            raise AssertionError(f"latent_decode at pos {p}: the kernel differs ({err:.3e} from the float64 "
+                                 f"answer, {diff:.3e} from the plain formula)")
+        worst = max(worst, err)
+        del got, plain, exact
+
+    # the kernel alone at the cell's middle position, arguments prepared once
+    p = N_TIMED_POS
+    pos = torch.tensor(p, dtype=torch.int32, device=dev)
+    launch = latent_ops.prepare(q_lat, q_pe, ckv, kpe, pos, scale)
+    ms = cuda_ms(launch, iters=50)
+    plain_ms = cuda_ms(lambda: attend_latent_ref(q_lat, q_pe, ckv, kpe, pos, scale), iters=20)
+    qs = torch.cat([q_lat, q_pe], -1)[:, :, None]  # (B, H, 1, latent + rope)
+    ks, vs = torch.cat([ckv, kpe], -1)[:, None, :p + 1], ckv[:, None, :p + 1]  # one KV head, rows 0 .. pos
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True)
+
+    lib_ms = cuda_ms(sdpa, iters=3, warmup=1)
+    out = launch().float()
+    lib_diff = float((sdpa()[:, :, 0].float() - out).abs().max())
+    if not lib_diff <= N_PLAIN_REL * float(out.abs().max()):
+        raise AssertionError(f"latent_decode: scaled_dot_product_attention computes another function ({lib_diff:.3e})")
+    del qs, ks, vs, out
+    nbytes = N_BATCH * (p + 1) * (lat + rope) * 2  # rows 0 .. pos once (one head group)
+    flops = 2 * N_BATCH * h * (p + 1) * ((lat + rope) + lat)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    log(f"time latent_decode {shape}, pos {p}: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of its bound), plain "
+        f"torch {plain_ms:.4f} ms (every allocated row, the latent twice), library {lib_ms:.4f} ms "
+        f"(scaled_dot_product_attention, enable_gqa; max abs diff from the kernel {lib_diff:.3e}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP) -- {card}")
+    del q_lat, q_pe, ckv, kpe, launch
+
+    # a decode step of the published model at full depth, every launch count zeroed just before it
+    cfg = FULL
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+    cache = model.make_cache(N_BATCH, N_ROWS, device=dev)
+    gen.manual_seed(45)
+    for name in ("ckv", "kpe"):  # seeded rows of unit spread, as the normed latent's
+        cache["layers"][name].normal_(generator=gen)
+    cache["pos"].fill_(p)
+    gen.manual_seed(46)
+    toks = torch.randint(0, cfg.vocab, (N_BATCH, 1), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    codegen_cuda.reset_launch_counts()
+    latent_ops.KERNEL.launches = 0
+    probe = otrace.arm_probe(dev)
+    try:
+        with torch.no_grad():
+            model.decode_step(params, {"tokens": toks}, cache)
+    finally:
+        otrace.disarm_probe()
+    launched = {k: n for k, n in codegen_cuda.launch_counts().items() if n}
+    counts = probe.result()["counts"]
+    want_bytes = cfg.n_layers * N_BATCH * (p + 1) * (lat + rope) * 2
+    log(f"path latent_decode: a decode step of {cfg.name} ({cfg.n_layers} layers, bf16) at {shape}, pos {p}: "
+        f"launches {launched}; probe counts mla.fused_calls {counts.get('mla.fused_calls')}, mla.decode_calls "
+        f"{counts.get('mla.decode_calls')}, mla.latent_bytes {counts.get('mla.latent_bytes')} (hand count "
+        f"{want_bytes}) -- {card}")
+    if (launched != {latent_ops.KERNEL.key: cfg.n_layers} or latent_ops.KERNEL.launches != cfg.n_layers
+            or counts.get("mla.fused_calls") != cfg.n_layers or counts.get("mla.decode_calls") != cfg.n_layers
+            or counts.get("mla.latent_bytes") != want_bytes):
+        raise AssertionError(f"latent_decode: a decode step launched {launched}, counted {counts}; expected "
+                             f"{cfg.n_layers} launches and {want_bytes} bytes")
+    del model, params, cache
+    return [{
+        "name": "latent_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/latent_attention/csrc/latent_decode_sm90.cu",
+        "replaces": None,  # the reference has no latent attention
+        "launches": latent_ops.KERNEL.launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms, "model": cfg.name,
+        "shape": [N_BATCH, h, N_ROWS, lat + rope], "pos": p,
+    }]
+
+
 def paths_a_to_g():
     """Phases 1-5 for paths A-G. Returns the kernels' report rows, the phases'
     walls and the card's name and power limit; what the paths held is freed
@@ -2050,6 +2204,7 @@ def paths_a_to_g():
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.hdiff import ops as hdiff_ops
     from repro_torch.kernels.hdiff.ref import hdiff_ref
+    from repro_torch.kernels.latent_attention import ops as latent_ops
     from repro_torch.kernels.vadv import ops as vadv_ops
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
@@ -2192,7 +2347,7 @@ def paths_a_to_g():
     groups = prog_cp.group_objects
     group_names = ["+".join(n.replace("_defs", "") for n in g) for g in prog_cp.report["group_stencils"]]
     # the hand-written kernels first: the flash sources take longest
-    hand = [flash_ops.KERNEL_BF16, flash_ops.KERNEL, rglru_ops.KERNEL]
+    hand = [flash_ops.KERNEL_BF16, flash_ops.KERNEL, rglru_ops.KERNEL, latent_ops.KERNEL]
     kernels = hand + [s["cuda"].kernel for s in list(S.values()) + list(corpus.values())]
     kernels += [s.kernel for s in S_sync.values()]
     kernels += prog_cp.group_kernels + [r.kernel for r in ens_runs] + [ens_stats.stencil.kernel]
@@ -2206,7 +2361,7 @@ def paths_a_to_g():
         f"{sum(len(c.group_objects) for c in serve_cps.values())} groups and {len(hand)} hand-written kernels, "
         f"{len({k.key for k in kernels})} CUDA sources compiled for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(corpus programs rejected by the written-API limit: {rejected})")
-    for hk in (flash_ops.KERNEL_BF16, flash_ops.KERNEL):
+    for hk in (flash_ops.KERNEL_BF16, flash_ops.KERNEL, latent_ops.KERNEL):
         ptxas = [ln.strip() for ln in hk.library.log.splitlines()
                  if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
         for ln in ptxas or ["(built in an earlier run: no ptxas output)"]:
@@ -3764,6 +3919,10 @@ def main() -> int:
     # path M: the stencil toolchain's matrices, its kernels built in the nvcc phase
     report += path_m(card)
     walls.mark("path M")
+    # path N: the latent decode kernel, and Moonlight's 32 GB of bf16 weights
+    torch.cuda.empty_cache()
+    report += path_n(card)
+    walls.mark("path N")
     log(walls.line())
     log(f"card: {card}")
     print(json.dumps({"kernels": report}), flush=True)

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.kernels.latent_attention import ops as latent_ops
+from repro_torch.kernels.latent_attention import ref as latent_ref
 from repro_torch.obs import trace as otrace
 from repro_torch.parallel.sharding import is_dtensor, matmul, to_local, with_logical_constraint
 
@@ -523,15 +525,12 @@ def attend_latent(q_lat, q_pe, ckv, kpe, pos, scale: float) -> torch.Tensor:
     cache: q_lat (B, H, latent) is each head's no-rope query taken through
     its key up-projection, q_pe (B, H, rope) its rotated query; ckv (B, S,
     latent) and kpe (B, S, rope) the cache, rows up to ``pos`` (a 0-d
-    tensor, read on the device) valid.  The scores are summed in float32
-    (float64 for float64 inputs); returns the softmax-weighted latent (B, H,
-    latent).  Every allocated row is read (the rows past ``pos`` masked), the
-    latent twice: once for the scores, once for the weighted sum."""
-    ct = torch.promote_types(ckv.dtype, torch.float32)
-    s = torch.bmm(q_lat, ckv.transpose(1, 2)).to(ct) + torch.bmm(q_pe, kpe.transpose(1, 2)).to(ct)
-    valid = torch.arange(ckv.shape[1], device=ckv.device) <= pos
-    p = torch.softmax(torch.where(valid, s * scale, NEG_INF), dim=-1)
-    return torch.bmm(p.to(ckv.dtype), ckv)
+    tensor, read on the device) valid; returns the softmax-weighted latent
+    (B, H, latent).  The decode route of ``impl="flash"``:
+    ``latent_ops.latent_attention``, the hand-written kernel on CUDA tensors
+    (rows 0 .. pos read once; a cache it does not take raises), the plain
+    formula ``latent_ref.attend_latent_ref`` on CPU tensors."""
+    return latent_ops.latent_attention(q_lat, q_pe, ckv, kpe, pos, scale)
 
 
 def mla_attention(params, x, m: MLAConfig, *, rope_theta: float, impl: str, chunk: int = 1024,
@@ -576,16 +575,26 @@ def mla_attention(params, x, m: MLAConfig, *, rope_theta: float, impl: str, chun
             # q_lat[b, h] = q_nope[b, h] · W_uk[:, h]^T: one product a head
             q_lat = torch.bmm(q[:, 0, :, :nope].transpose(0, 1), w_kvb[..., :nope].permute(1, 2, 0))
     if decode:
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        # "flash": the hand-written kernels' route; "naive" and "chunked": the
+        # plain formula on any device, as for the prompt
+        attend = attend_latent if impl == "flash" else latent_ref.attend_latent_ref
+        launched = latent_ops.KERNEL.launches
         with otrace.device_span("mla.attend"):
-            ckv, kpe = cache["ckv"], cache["kpe"]
-            o_lat = attend_latent(q_lat.transpose(0, 1), q_pe[:, 0], ckv, kpe, cache["pos"], scale)
+            o_lat = attend(q_lat.transpose(0, 1), q_pe[:, 0], ckv, kpe, cache["pos"], scale)
         if probe is not None:
-            probe.add("mla.latent_bytes", ckv.shape[0] * ckv.shape[1] * (2 * r + rp) * ckv.element_size())
+            if latent_ops.KERNEL.launches > launched:  # the kernel ran: rows 0 .. pos, once a head group
+                probe.add("mla.latent_bytes", latent_ops.bytes_read(ckv, kpe, cache["pos"], h))
+                probe.add("mla.fused_calls", 1)
+            else:
+                probe.add("mla.latent_bytes", latent_ref.bytes_read(ckv, kpe))
             probe.add("mla.decode_calls", 1)
         with otrace.device_span("mla.project"):
             # o[b, h] = o_lat[b, h] · W_uv[:, h]
             o = torch.bmm(o_lat.transpose(0, 1), w_kvb[..., nope:].permute(1, 0, 2)).transpose(0, 1)
             return out_project(params, o[:, None]), new_cache
+    if cache is not None and impl == "flash" and x.is_cuda:
+        latent_ops.KERNEL.start_build()  # the decode steps' kernel compiles while the prompt attends
     with otrace.device_span("mla.attend"):
         kv = _project(c_kv, w_kvb)  # (B, S, H, nope + v)
         k = torch.cat([kv[..., :nope], k_pe.expand(b, s, h, rp)], dim=-1)
