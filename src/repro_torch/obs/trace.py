@@ -59,6 +59,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Dict, Iterable, List, Optional
 
 import torch.autograd.profiler as _autograd_profiler
@@ -507,9 +508,11 @@ class capture:
 
 
 class DeviceProbe:
-    """Device time of named spans and counts the model adds, while armed
-    (:func:`arm_probe`); nothing is recorded, and nothing synchronises, while
-    no probe is armed.
+    """Device time of named spans and counts the code adds, while armed
+    (:func:`arm_probe`, :func:`probing`); nothing is recorded, and nothing
+    synchronises, while no probe is armed.  It is the port's one span timer:
+    the LM's spans, the distributed step's (``rank_timings``) and a profiled
+    program call's groups (``node_timings``) are all read from it.
 
     On the card each :meth:`span` records a CUDA event at its bounds on the
     current stream (read once, by :meth:`result`), elsewhere the host clock.
@@ -536,15 +539,16 @@ class DeviceProbe:
         ev.record()
         return ev
 
-    def span(self, name: str):
-        return _ProbeSpan(self, name)
+    def span(self, name: str, **attrs: Any):
+        return _ProbeSpan(self, name, attrs)
 
     def add(self, name: str, value: Any) -> None:
         self.counts[name] = self.counts[name] + value if name in self.counts else value
 
     def result(self) -> Dict[str, Any]:
-        """``seconds`` and ``calls`` by span name, and ``counts`` (a list
-        for a tensor count, else a number); synchronises once."""
+        """``seconds``, ``calls`` and ``durations`` (each call's seconds, in
+        call order) by span name, and ``counts`` (a list for a tensor count,
+        else a number); synchronises once."""
         if self.card:
             self._torch.cuda.synchronize()
 
@@ -554,20 +558,22 @@ class DeviceProbe:
         def plain(v):
             return v.tolist() if isinstance(v, self._torch.Tensor) else v
 
+        durations = {n: [seconds(a, b) for a, b in iv] for n, iv in self.intervals.items()}
         return {"clock": "cuda_events" if self.card else "host",
-                "seconds": {n: sum(seconds(a, b) for a, b in iv) for n, iv in self.intervals.items()},
-                "calls": {n: len(iv) for n, iv in self.intervals.items()},
+                "seconds": {n: sum(d) for n, d in durations.items()},
+                "calls": {n: len(d) for n, d in durations.items()},
+                "durations": durations,
                 "counts": {n: plain(v) for n, v in self.counts.items()}}
 
 
 class _ProbeSpan:
-    __slots__ = ("probe", "name", "_span", "_start")
+    __slots__ = ("probe", "name", "attrs", "_span", "_start")
 
-    def __init__(self, probe: DeviceProbe, name: str):
-        self.probe, self.name = probe, name
+    def __init__(self, probe: DeviceProbe, name: str, attrs: Dict[str, Any]):
+        self.probe, self.name, self.attrs = probe, name, attrs
 
     def __enter__(self) -> "_ProbeSpan":
-        self._span = span(self.name)
+        self._span = span(self.name, **self.attrs)
         self._span.__enter__()
         self._start = self.probe._mark()
         return self
@@ -595,15 +601,28 @@ def disarm_probe() -> Optional[DeviceProbe]:
     return p
 
 
+@contextmanager
+def probing(device):
+    """Arm a fresh :class:`DeviceProbe` on ``device`` inside (yields it); on
+    exit re-arm whatever probe was armed before, so probings nest."""
+    global _probe
+    outer, _probe = _probe, DeviceProbe(device)
+    try:
+        yield _probe
+    finally:
+        _probe = outer
+
+
 def probe() -> Optional[DeviceProbe]:
     """The armed probe, or None."""
     return _probe
 
 
-def device_span(name: str):
-    """:func:`span` of ``name``, also timed on the device while a probe is armed."""
+def device_span(name: str, **attrs: Any):
+    """:func:`span` of ``name`` (with ``attrs``), also timed on the device
+    while a probe is armed."""
     p = _probe
-    return span(name) if p is None else p.span(name)
+    return span(name, **attrs) if p is None else p.span(name, **attrs)
 
 
 # ---------------------------------------------------------------------------

@@ -32,14 +32,12 @@ zeros there); an axis of size 1 exchanges nothing, even when periodic.
 exchanges this process ran, the point-to-point messages it posted and the
 bytes of their stripes.
 
-Each exchange is a ``halo.exchange`` span, and each axis of it four:
-``halo.pack`` (the stripes copied into the send buffers), ``halo.post``
-(``batch_isend_irecv``), ``halo.wait`` (the wait on the transfer) and
-``halo.unpack`` (the rims copied back).  The exchange's ``lap``, where
-set, is called at the end of each axis' pack, wait and unpack with the
-phase's name (``"pack"``, ``"wait"``, ``"unpack"``): the rank step's timer
-sets it for the length of a timed exchange and closes an interval there,
-so the three phases tile the exchange.
+Each exchange is a ``halo.exchange`` device span (``obs.trace.device_span``),
+and each axis of it four: ``halo.pack`` (the stripes copied into the send
+buffers), ``halo.post`` (``batch_isend_irecv``), ``halo.wait`` (the wait on
+the transfer) and ``halo.unpack`` (the rims copied back).  While a device
+probe is armed they are timed there: the rank step's ``rank_timings`` are
+read from them.
 """
 
 from __future__ import annotations
@@ -121,8 +119,7 @@ class HaloExchange:
 
     ``post(axis, sends)``, where given, is called with each axis' messages,
     ``(peer, stripe, tag)`` each, in place of the transport: nothing is
-    posted and the rims keep what they hold.  ``lap(phase)``, where set, is
-    called at the end of each axis' pack, wait and unpack.
+    posted and the rims keep what they hold.
     """
 
     def __init__(self, mesh, i_axis: str = "data", j_axis: str = "model",
@@ -130,7 +127,6 @@ class HaloExchange:
                  post: Optional[Callable[[_Axis, list], None]] = None):
         self.mesh = mesh
         self.post = post
-        self.lap: Optional[Callable[[str], None]] = None
         self.i_axis, self.j_axis = i_axis, j_axis
         self.periodic = tuple(bool(p) for p in periodic)
         self.axes = (_Axis(mesh, i_axis, self.periodic[0]), _Axis(mesh, j_axis, self.periodic[1]))
@@ -173,36 +169,30 @@ class HaloExchange:
             self.post(axis, sends)
             return
         ops = []
-        with otrace.span("halo.pack"):
+        with otrace.device_span("halo.pack"):
             for k, (peer, stripe, tag) in enumerate(sends):
                 buf = self._buffer(f"send{k}", stripe, staged)
                 buf.copy_(stripe, non_blocking=staged)
                 ops.append(dist.P2POp(dist.isend, buf, peer, axis.group, tag))
             if staged:
                 torch.cuda.current_stream(lo_send.device).synchronize()  # the stripes are in host memory
-        if self.lap is not None:
-            self.lap("pack")
         landing = []
         for k, (peer, rim, tag) in enumerate(recvs):
             buf = self._buffer(f"recv{k}", rim, staged)
             ops.append(dist.P2POp(dist.irecv, buf, peer, axis.group, tag))
             landing.append((rim, buf))
-        with otrace.span("halo.post"):
+        with otrace.device_span("halo.post"):
             works = dist.batch_isend_irecv(ops)
-        with otrace.span("halo.wait"):
+        with otrace.device_span("halo.wait"):
             for work in works:
                 work.wait()
-        if self.lap is not None:
-            self.lap("wait")
         _COUNTS["send"] += len(sends)
         _COUNTS["recv"] += len(recvs)
         _COUNTS["send_bytes"] += sum(s.numel() * s.element_size() for _p, s, _t in sends)
         _COUNTS["recv_bytes"] += sum(r.numel() * r.element_size() for _p, r, _t in recvs)
-        with otrace.span("halo.unpack"):
+        with otrace.device_span("halo.unpack"):
             for rim, buf in landing:
                 rim.copy_(buf, non_blocking=staged)
-        if self.lap is not None:
-            self.lap("unpack")
 
     def fill(self, padded: torch.Tensor, halo: int, depth: Optional[int] = None, lead: int = 0) -> None:
         h = int(halo)
@@ -216,7 +206,7 @@ class HaloExchange:
         if ni < h or nj < h:
             raise ValueError(f"halo exchange: a local block of {ni} x {nj} cannot send {h}-deep stripes")
         _COUNTS["exchanges"] += 1
-        with otrace.span("halo.exchange"):
+        with otrace.device_span("halo.exchange"):
             # i stripes: the interior's j columns
             rows = padded.narrow(sj, d, nj)
             self._exchange_axis(self.axes[0], rows.narrow(si, d, h), rows.narrow(si, d + ni - h, h),

@@ -43,7 +43,7 @@ between them (``parallel.halo``).
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -499,40 +499,30 @@ class CompiledProgram:
         return self._module.run(raw_fields, scalars, self._group_runs)
 
     def _execute_profiled(self, raw_fields, scalars, exec_info) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """Same generated orchestrator, with each group run timed: by CUDA
-        events on the card (``seconds`` is then device time), else by the
-        host clock."""
-        timings: List[Dict[str, Any]] = []
+        """Same generated orchestrator, with each group run in a
+        ``program.group`` device span of a probe armed for the call: on the
+        card ``seconds`` is device time between CUDA events, read with one
+        synchronisation after the run, else the host clock."""
+        order: List[int] = []
 
         def timed(gi: int, fn: Callable) -> Callable:
             def _run(fields, scalars, domain, origins):
-                obj = self.group_objects[gi]
-                on_card = obj.backend in TORCH_BACKENDS and _group_device(obj, fields).type == "cuda"
-                if on_card:
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                t0 = time.perf_counter()
-                fn(fields, scalars, domain, origins)
-                if on_card:
-                    end.record()
-                    end.synchronize()
-                    seconds = start.elapsed_time(end) / 1e3
-                else:
-                    seconds = time.perf_counter() - t0
-                timings.append(
-                    {
-                        "group": gi,
-                        "stencils": self.report["group_stencils"][gi],
-                        "seconds": seconds,
-                        "clock": "cuda_events" if on_card else "host",
-                    }
-                )
+                order.append(gi)
+                with otrace.device_span("program.group"):
+                    fn(fields, scalars, domain, origins)
 
             return _run
 
+        device = next((v.device for v in raw_fields.values() if isinstance(v, torch.Tensor)), "cpu")
         runs = [timed(gi, fn) for gi, fn in enumerate(self._group_runs)]
-        out = self._module.run(raw_fields, scalars, runs)
-        exec_info["program_report"]["node_timings"] = timings
+        with otrace.probing(device) as probe:
+            out = self._module.run(raw_fields, scalars, runs)
+        r = probe.result()
+        stencils = self.report["group_stencils"]
+        exec_info["program_report"]["node_timings"] = [
+            {"group": gi, "stencils": stencils[gi], "seconds": seconds, "clock": r["clock"]}
+            for gi, seconds in zip(order, r["durations"].get("program.group", []))
+        ]
         return out
 
 
@@ -802,86 +792,6 @@ class _Padded:
         return lead == self.lead and v.shape == x.shape and v.dtype == x.dtype and v.device == x.device
 
 
-class _StepTimer:
-    """Time of a run, and of its phases: CUDA events recorded on the compute
-    stream on the card (read once at the end), else the host clock.
-
-    ``mark()`` takes a time; ``lap(kind)`` takes one and closes an interval
-    of ``kind`` from the last time taken, so laps in a row tile the time
-    between them.  ``exchange(hx)`` times one exchange of ``hx`` as laps of
-    its axes' ``pack``, ``wait`` and ``unpack`` (the wait from the end of the
-    pack to the end of the wait on the transfer, the peers' lateness
-    included), so its interval, from its first mark to its last lap, is
-    their sum.
-
-    ``steady_wait_seconds`` is the wait of the run's exchanges but its
-    first, scaled to all of them: the first absorbs the ranks' skew at the
-    run's start (each rank begins the run when its host gets there), the
-    later ones wait for the transfer and the peers' step."""
-
-    KINDS = ("exchange", "pack", "wait", "unpack", "groups", "pad", "release")
-
-    def __init__(self, device: torch.device):
-        self.card = device.type == "cuda"
-        self.spans: Dict[str, list] = {k: [] for k in self.KINDS}
-        self.first_waits: Optional[int] = None  # the wait laps of the first exchange
-        self.start = self.mark()
-
-    def mark(self):
-        if not self.card:
-            self.last = time.perf_counter()
-        else:
-            self.last = torch.cuda.Event(enable_timing=True)
-            self.last.record()
-        return self.last
-
-    def lap(self, kind: str) -> None:
-        before = self.last
-        self.spans[kind].append((before, self.mark()))
-
-    @contextmanager
-    def exchange(self, hx: HaloExchange):
-        """Time the exchange ``hx`` runs inside: ``hx`` laps its phases."""
-        t0 = self.mark()
-        hx.lap = self.lap
-        try:
-            yield
-        finally:
-            hx.lap = None
-        self.spans["exchange"].append((t0, self.last))
-        if self.first_waits is None:
-            self.first_waits = len(self.spans["wait"])
-
-    def result(self, steps: int) -> Dict[str, Any]:
-        end = self.mark()
-        if self.card:
-            torch.cuda.synchronize()
-
-        def seconds(a, b):
-            return a.elapsed_time(b) / 1e3 if self.card else b - a
-
-        out = {"clock": "cuda_events" if self.card else "host", "steps": int(steps),
-               "seconds": seconds(self.start, end)}
-        for kind, spans in self.spans.items():
-            out[f"{kind}_seconds"] = sum(seconds(a, b) for a, b in spans)
-            out[f"{kind}_count"] = len(spans)
-        n = len(self.spans["exchange"])
-        later = sum(seconds(a, b) for a, b in self.spans["wait"][self.first_waits:])
-        out["steady_wait_seconds"] = later * n / (n - 1) if n > 1 else out["wait_seconds"]
-        return out
-
-
-def _timed_copy(dst: torch.Tensor, src: torch.Tensor, timer: Optional[_StepTimer], kind: str,
-                span: str) -> None:
-    """``dst.copy_(src)`` in a span, and a ``kind`` interval of ``timer``."""
-    if timer:
-        timer.mark()
-    with otrace.span(span):
-        dst.copy_(src)
-    if timer:
-        timer.lap(kind)
-
-
 class _RankStep:
     """One rank's step of a ``DistributedStepPlan`` on one device.
 
@@ -931,7 +841,7 @@ class _RankStep:
         e = self._by_view.get(id(x))
         return e if e is not None and e.view is x else None
 
-    def _padded(self, vals: Dict[str, Any], b: str, timer: Optional[_StepTimer] = None) -> _Padded:
+    def _padded(self, vals: Dict[str, Any], b: str) -> _Padded:
         """The padded buffer that holds ``b``: the one it is bound to, else a
         free one with the interior copied in."""
         x = vals[b]
@@ -946,7 +856,8 @@ class _RankStep:
                         self.plan.depth, lead)
             self._pool.append(e)
             self._by_view[id(e.view)] = e
-        _timed_copy(e.view, x, timer, "pad", "rank_step.pad")
+        with otrace.device_span("rank_step.pad"):
+            e.view.copy_(x)
         e.source = x
         vals[b] = e.view
         return e
@@ -968,33 +879,29 @@ class _RankStep:
             t.zero_()
         return t
 
-    def step(self, vals: Dict[str, Any], scalars: Dict[str, Any], timer: Optional[_StepTimer] = None) -> None:
+    def step(self, vals: Dict[str, Any], scalars: Dict[str, Any], _unused: Any = None) -> None:
         """One step on ``vals`` (name → tensor), in place: exchanged names
-        end up bound to padded buffers' interiors."""
+        end up bound to padded buffers' interiors.  A third argument is
+        taken and ignored."""
         plan = self.plan
         for b in plan.alloc_internals:
             vals[b] = self._internal(b)
         for gi, run in enumerate(self.runs):
             for op in plan.halo.before_group(gi):
-                e = self._padded(vals, op.buffer, timer)
-                with timer.exchange(self.exchange) if timer else nullcontext():
-                    self.exchange.fill(e.padded, op.halo, e.depth, e.lead)
+                e = self._padded(vals, op.buffer)
+                self.exchange.fill(e.padded, op.halo, e.depth, e.lead)
             fields, origins = {}, {}
             for b in plan.group_buffers[gi]:
                 e = self._entry(vals[b])
                 fields[b], origins[b] = (e.padded, e.origin) if e is not None else (vals[b], (0, 0, 0))
-            if timer:
-                timer.mark()
-            run(fields, scalars, plan.local_domain, origins)
-            if timer:
-                timer.lap("groups")
+            with otrace.device_span("rank_step.group"):
+                run(fields, scalars, plan.local_domain, origins)
             written = {id(vals[b]) for b in plan.group_writes[gi]}
             for e in self._pool:  # a write ends the agreement of a copy and its source
                 if id(e.view) in written or (e.source is not None and id(e.source) in written):
                     e.source = None
 
-    def release(self, vals: Dict[str, Any], fields: Dict[str, Any],
-                timer: Optional[_StepTimer] = None) -> Dict[str, Any]:
+    def release(self, vals: Dict[str, Any], fields: Dict[str, Any]) -> Dict[str, Any]:
         """``vals`` with every caller's name bound to a caller's tensor again.
 
         A name held by a padded buffer gets back the tensor its interior was
@@ -1020,7 +927,8 @@ class _RankStep:
             t = free.pop(id(fields[n]), None)
             if t is None:
                 t = free.popitem()[1] if free else torch.empty_like(fields[n])
-            _timed_copy(t, view, timer, "release", "rank_step.release")
+            with otrace.device_span("rank_step.release"):
+                t.copy_(view)
             out[n] = t
         return out
 
@@ -1147,33 +1055,64 @@ def run_rank_steps(step: _RankStep, n: int, fields: Dict[str, Any], scalars: Dic
                    exec_info: Optional[dict], iterate: bool, report_key: str, report: Dict[str, Any]):
     """``n`` steps of ``step`` from ``fields``; the output binding after the
     last.  ``exec_info`` gets ``report`` under ``report_key`` (with
-    ``iterated_steps`` for an ``iterate``), and ``rank_timings``: this rank's
-    time of the run, of its exchanges (and their pack, wait and unpack), its
-    group runs and its copies into and out of the padded buffers, and the
-    run's bytes of full scratch (``codegen_cuda.scratch_counts``)."""
+    ``iterated_steps`` for an ``iterate``), and ``rank_timings``
+    (:func:`_rank_timings`), read from a device probe armed for the run
+    (``obs.trace.probing``): the ``dist.iterate``, ``rank_step.*`` and
+    ``halo.*`` spans, on the card CUDA events on the compute stream, else
+    the host clock.  Without ``exec_info`` no probe is armed."""
     plan = step.plan
-    timer = None
+    probing = nullcontext()
     if exec_info is not None:
         exec_info[report_key] = dict(report)
         if iterate:
             exec_info[report_key]["iterated_steps"] = int(n)
         exec_info["run_start_time"] = time.perf_counter()
         scratch0 = sum(codegen_cuda.scratch_counts().values())
-        timer = _StepTimer(step.device)
+        probing = otrace.probing(step.device)
     vals = dict(fields)
-    with otrace.span("dist.iterate", category="program", steps=int(n)):
+    with probing as probe, otrace.device_span("dist.iterate", category="program", steps=int(n)):
         for i in range(n):
-            step.step(vals, scalars, timer)
+            step.step(vals, scalars)
             if iterate or i + 1 < n:
                 vals.update({o: vals[b] for o, b in plan.outputs.items()})
-        vals = step.release(vals, fields, timer)
+        vals = step.release(vals, fields)
     if iterate:
         outs = {o: vals[o] for o in plan.outputs}
     else:
         outs = {o: vals[b] for o, b in plan.outputs.items()}
     if exec_info is not None:
-        timings = timer.result(n)
+        timings = _rank_timings(probe.result(), n)
         timings["scratch_bytes"] = sum(codegen_cuda.scratch_counts().values()) - scratch0
         exec_info["rank_timings"] = timings
         exec_info["run_end_time"] = time.perf_counter()
     return outs
+
+
+#: ``rank_timings``' phases but the exchange, each the probe's spans it sums a call
+_PHASES = {"pack": ("halo.pack",), "wait": ("halo.post", "halo.wait"), "unpack": ("halo.unpack",),
+           "groups": ("rank_step.group",), "pad": ("rank_step.pad",), "release": ("rank_step.release",)}
+
+
+def _rank_timings(result: Dict[str, Any], steps: int) -> Dict[str, Any]:
+    """A rank run's timings from its probe's ``result``: ``seconds`` (the
+    run, the release included), and the seconds and count of the exchanges
+    and of each of ``_PHASES``.  ``wait`` runs from the post to the end of
+    the wait on the transfer, the peers' lateness included; the exchanges'
+    seconds are the sum of their phases.  ``steady_wait_seconds`` is the
+    wait of the run's exchanges but its first, scaled to all of them: the
+    first absorbs the ranks' skew at the run's start (each rank begins the
+    run when its host gets there), the later ones wait for the transfer and
+    the peers' step."""
+    durations = result["durations"]
+    per_call = {phase: [sum(d) for d in zip(*(durations.get(name, []) for name in names))]
+                for phase, names in _PHASES.items()}
+    n = result["calls"].get("halo.exchange", 0)
+    out = {"clock": result["clock"], "steps": int(steps), "seconds": result["seconds"]["dist.iterate"],
+           "exchange_count": n}
+    for phase, seconds in per_call.items():
+        out[f"{phase}_seconds"], out[f"{phase}_count"] = sum(seconds), len(seconds)
+    out["exchange_seconds"] = out["pack_seconds"] + out["wait_seconds"] + out["unpack_seconds"]
+    waits = per_call["wait"]
+    first = len(waits) // n if n else 0  # every exchange of a rank posts on the same axes
+    out["steady_wait_seconds"] = sum(waits[first:]) * n / (n - 1) if n > 1 else out["wait_seconds"]
+    return out

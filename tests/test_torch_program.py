@@ -318,6 +318,35 @@ def test_distribute_on_one_rank_matches_the_program(tmp_path):
     np.testing.assert_array_equal(final["phi"].numpy(), single["phi"].to_numpy()[H:-H, H:-H])
 
 
+def test_timed_distributed_call_leaves_an_armed_probe_as_it_was(tmp_path):
+    """A distributed call with ``exec_info`` times its spans in a probe of
+    its own (``obs.trace.probing``): a probe armed around the call (the
+    LM's) is armed again after it, with no span and no count of the call."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import trace as otrace
+
+    arrays = {n: np.pad(a[H:-H, H:-H], ((H, H), (H, H), (0, 0))) for n, a in _arrays().items()}
+    prog = climate.build_program("cuda", DOM, name="t_dist_probe")
+    local = {n: torch.from_numpy(a[H:-H, H:-H].copy()) for n, a in arrays.items()}
+    info = {}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    outer = otrace.arm_probe("cpu")
+    try:
+        outer.add("moe.layer_calls", 1)
+        prog.distribute(make_mesh((1, 1), ("data", "model"), "cpu"))(local, SCALARS, exec_info=info)
+        assert otrace.probe() is outer
+    finally:
+        otrace.disarm_probe()
+        dist.destroy_process_group()
+    t = info["rank_timings"]
+    # a 1 x 1 mesh posts nothing
+    assert (t["exchange_count"], t["pack_count"], t["groups_count"]) == (2, 0, 2)
+    r = outer.result()
+    assert r["counts"] == {"moe.layer_calls": 1} and r["calls"] == {}
+
+
 # ---------------------------------------------------------------------------
 # the tracer: recording, versions, dead stores, what must raise
 # ---------------------------------------------------------------------------

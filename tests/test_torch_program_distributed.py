@@ -295,29 +295,33 @@ def test_rank_timings_split_the_exchange(runs):
 def test_steady_wait_leaves_out_the_runs_first_exchange(monkeypatch):
     """``steady_wait_seconds``: the waits of every exchange but the first,
     scaled to all of them; the first's long wait (the ranks' skew at the
-    run's start) stays in ``wait_seconds`` alone."""
+    run's start) stays in ``wait_seconds`` alone.  A wait is the axis'
+    ``halo.post`` and ``halo.wait`` spans, and the exchanges' seconds are
+    the sum of their phases."""
+    from repro_torch.obs import trace as otrace
     from repro_torch.program import compile as prog_compile
 
     now = [0.0]
-    monkeypatch.setattr(prog_compile.time, "perf_counter", lambda: now[0])
-    timer = prog_compile._StepTimer(torch.device("cpu"))
+    monkeypatch.setattr(otrace, "monotonic", lambda: now[0])
 
-    class Exchange:
-        lap = None
+    def tick(name, ticks):
+        with otrace.device_span(name):
+            now[0] += ticks
 
-    hx = Exchange()
-    for wait in (50.0, 2.0, 2.0, 2.0):
-        with timer.exchange(hx):
-            for _axis in range(2):
-                for phase, ticks in (("pack", 1.0), ("wait", wait), ("unpack", 1.0)):
-                    now[0] += ticks
-                    hx.lap(phase)
-        assert hx.lap is None
-    t = timer.result(2)
+    with otrace.probing("cpu") as probe, otrace.device_span("dist.iterate"):
+        for wait in (50.0, 2.0, 2.0, 2.0):
+            with otrace.device_span("halo.exchange"):
+                for _axis in range(2):
+                    tick("halo.pack", 1.0)
+                    tick("halo.post", 1.0)
+                    tick("halo.wait", wait - 1.0)
+                    tick("halo.unpack", 1.0)
+    t = prog_compile._rank_timings(probe.result(), 2)
     assert (t["exchange_count"], t["wait_count"]) == (4, 8)
     assert t["wait_seconds"] == 2 * 50 + 6 * 2
     assert t["steady_wait_seconds"] == 6 * 2 * 4 / 3
     assert t["pack_seconds"] + t["wait_seconds"] + t["unpack_seconds"] == t["exchange_seconds"] == 128
+    assert t["seconds"] == 128 and t["steps"] == 2
 
 
 def test_message_bytes_are_the_plans_stripes(runs):
