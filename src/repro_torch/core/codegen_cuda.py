@@ -25,6 +25,31 @@ not its blocks.  The schedule is GridTools' ``gtcuda`` one:
 * ragged tiles are masked in the kernel and outputs are written in place, so
   inout, masked and partial-k outputs keep the caller's values.
 
+The load pipeline.  A PARALLEL interval (or k-sweep) that no k-walk holds and
+that may span more than one level streams every read-only IJK input it reads,
+own-column ones too, through a ring of ``D`` shared-memory slots a (input,
+plane offset), tile plus the input's extent, so that no stage of a plane
+reads device memory and ``D - 1`` planes are in flight while one computes.
+Each plane's copies are one ``cp.async`` group, and the loop waits for the
+group of its plane alone (``cp.async.wait_group D - 2``; every group in the
+last planes), behind one barrier a plane, which also frees the slot the next
+copy refills.  A copy moves 16 bytes where a field's rows start 16-byte
+aligned (its base, and its I, K and member pitches, multiples of 16 bytes:
+the kernel checks what it is handed), into rows widened to 16-byte chunks;
+else one element.  A thread's first chunk of each input, and a tile point's
+thread, are fixed before the loop, so a plane costs no division.  ``D`` is
+``PIPE_DEPTH``, 3.  A pipelined kernel asks for the shared memory that
+leaves an SM room for ``PIPE_THREADS`` resident threads and no more (fewer
+blocks in flight stream faster), and one whose rings do not fit beside them
+at ``DEFAULT_BLOCK`` keeps its loads.  A plane temporary that one assignment alone in its stage
+computes from staged planes, scalars and other such temporaries is not
+stored (``inline``): each read evaluates it at the reader's offset in
+registers, with the same operations, so its stage and barrier go.
+``SCHEDULE["prefetch"]`` lists each such loop; ``prefetch_counts()`` the
+bytes launches brought through the rings.  ``async_staging=False`` keeps the
+plain loads of the staged planes only (what ``chip_smoke.py`` times the
+pipeline against).
+
 What bounds it on an H100: hdiff and vadv do a few flops per byte, far below
 the card's float64 ridge point, so they are bound by device-memory bytes.
 ``threadIdx.x`` walks J, and so does every loop over a tile, so a warp's
@@ -90,13 +115,24 @@ from .codegen_common import Emitter, _c, bound_expr, multistage_plan
 from .gtscript import GTScriptSemanticError
 
 # bump on any change to the generated source: it is part of the fingerprint
-CODEGEN_VERSION = "cuda-4"
+CODEGEN_VERSION = "cuda-5"
 DEFAULT_BLOCK: Tuple[int, int] = (8, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SMEM_DEFAULT_LIMIT = 48 * 1024  # above it the launcher raises the kernel's attribute
 SMEM_MAX = 232448  # what one H100 block may use
 _SMEM_ALIGN = 16
+# the load pipeline's slots a ring: two planes in flight while one computes
+# (deeper rings measured slower on the H100: PERF.md §6)
+PIPE_DEPTH = 3
+# resident threads an SM a pipelined kernel runs: its launch asks for the
+# shared memory that leaves room for no more (more resident blocks measured
+# slower on the H100: PERF.md §6); a kernel whose rings do not fit beside
+# them at DEFAULT_BLOCK keeps its loads.  An SM has 228 KB of shared memory,
+# of which each resident block reserves 1 KB
+PIPE_THREADS = 768
+_SMEM_SM = 233472
+_SMEM_BLOCK_RESERVED = 1024
 
 _CTYPE = {
     "float64": "double",
@@ -120,6 +156,9 @@ _LAUNCHES: Counter = Counter()
 # bytes of full scratch the launches wrote, by kernel key since the last reset
 _SCRATCH: Counter = Counter()
 
+# bytes the launches brought through the load pipeline's rings, by kernel key
+_PREFETCH: Counter = Counter()
+
 
 def register_kernel(kernel) -> None:
     """Let ``reset_launch_counts()`` reach a ``CountedKernel``."""
@@ -141,10 +180,12 @@ class CountedKernel:
         _LAUNCHES[self.key] += int(value) - self._launches
         self._launches = int(value)
 
-    def count_launch(self, scratch_bytes: int = 0) -> None:
-        """One launch more, which wrote ``scratch_bytes`` of full scratch."""
+    def count_launch(self, scratch_bytes: int = 0, prefetch_bytes: int = 0) -> None:
+        """One launch more, which wrote ``scratch_bytes`` of full scratch and
+        brought ``prefetch_bytes`` through its load pipeline."""
         self.launches += 1
         _SCRATCH[self.key] += scratch_bytes
+        _PREFETCH[self.key] += prefetch_bytes
 
 
 def launch_counts() -> Dict[str, int]:
@@ -160,15 +201,21 @@ def scratch_counts() -> Dict[str, int]:
     return dict(_SCRATCH)
 
 
+def prefetch_counts() -> Dict[str, int]:
+    """Bytes the launches brought through the load pipeline's rings, by
+    kernel key since the last reset: each staged plane's tile plus extent,
+    clipped to the domain, once a level of its loop (not the chunks' padding)."""
+    return dict(_PREFETCH)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and every key's launch and scratch
-    counts, to 0."""
+    """Set every kernel's launch count, and every key's launch, scratch and
+    prefetch counts, to 0."""
     for k in list(_KERNELS):
         k.launches = 0
-    for key in _LAUNCHES:
-        _LAUNCHES[key] = 0
-    for key in _SCRATCH:
-        _SCRATCH[key] = 0
+    for counter in (_LAUNCHES, _SCRATCH, _PREFETCH):
+        for key in counter:
+            counter[key] = 0
 
 
 def _ctype(dtype: str) -> str:
@@ -318,15 +365,18 @@ def _collect(impl: ir.StencilImplementation) -> Dict[str, List[_Access]]:
     return acc
 
 
-def _groups(itv: ir.MultiStageInterval) -> List[List[int]]:
+def _groups(itv: ir.MultiStageInterval, skip: Set[int] = frozenset()) -> List[List[int]]:
     """Consecutive stages with one compute extent and no horizontal hazard:
     no stage reads, at a horizontal offset, a field an earlier stage of the
-    group writes, nor writes a field an earlier stage read at one."""
+    group writes, nor writes a field an earlier stage read at one.  The
+    stages in ``skip`` (those of inlined temporaries) are left out."""
     groups: List[List[int]] = []
     cur: List[int] = []
     written: Set[str] = set()
     read_off: Set[str] = set()
     for si, st in enumerate(itv.stages):
+        if si in skip:
+            continue
         s_off = {n for stmt in st.stmts for n, o in ir.stmt_reads(stmt) if (o[0], o[1]) != (0, 0)}
         hazard = bool(cur) and (
             st.compute_extent != itv.stages[cur[0]].compute_extent
@@ -494,6 +544,8 @@ class _Loop:
     planes: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
     readers: Dict[Tuple[str, int], List[int]] = dataclasses.field(default_factory=dict)
     rings: Dict[str, _Ring] = dataclasses.field(default_factory=dict)  # by field
+    # the load pipeline's (input, plane offset) rings; empty where the loop has none
+    pipe: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
 
     @property
     def walk(self) -> bool:
@@ -517,6 +569,7 @@ class _Temp:
     masked: bool = False
     group: Optional[Tuple[int, int, int]] = None  # reg: (mi, ii, group index)
     zero_all: bool = False  # full: unwritten points can be read, so zero it all
+    expr: Optional[ir.Expr] = None  # inline: the value, evaluated at each read's offset
 
     @property
     def rows_extra(self) -> int:
@@ -579,9 +632,14 @@ class _Plan:
                     del loop.rings[n]
         self.staged = self._staged_inputs()
         self._stage_loops()
-        # staged planes double-buffered and filled by cp.async (4- and 8-byte elements)
-        self.async_staging = async_staging and bool(self.staged) and all(
+        if async_staging:
+            self._pipeline_loops()
+            self._inline_temps()
+        # outside the pipelines, staged planes double-buffered and filled by
+        # cp.async (4- and 8-byte elements)
+        self.double_buffer = async_staging and bool(self.staged) and all(
             np.dtype(self.api[n].dtype).itemsize in (4, 8) for lst in self.staged.values() for n, _ in lst)
+        self.async_staging = self.double_buffer or any(loop.pipe for loop in self.loops)
         self._layout_smem()
 
     def group_of(self, mi: int, ii: int, si: int) -> int:
@@ -825,11 +883,92 @@ class _Plan:
                     out.append((n, dk + shift))
         return out
 
+    # -- the load pipeline --------------------------------------------------------
+
+    def _pipeline_loops(self) -> None:
+        """Give each loop that streams its inputs its rings (``_Loop.pipe``):
+        a PARALLEL interval (or k-sweep) that no walk holds and that may span
+        more than one level, every read-only IJK input of which has 4- or
+        8-byte elements; one ring for each (input, plane offset) it reads.
+        None where the kernel's rings do not fit in the shared memory a block
+        of ``DEFAULT_BLOCK`` asks for (``_pipe_smem``; many inputs: the
+        ensemble statistics read every member)."""
+        order = {n: i for i, n in enumerate(self.api)}
+        for loop in self.loops:
+            u = loop.units[0]
+            iv = self.impl.multi_stages[u.mi].intervals[u.ii].interval
+            if (loop.walk or self.impl.multi_stages[u.mi].order != ir.IterationOrder.PARALLEL
+                    or (iv.start.level == iv.end.level and iv.end.offset - iv.start.offset <= 1)):
+                continue
+            planes = sorted({(n, a.offset[2]) for n, accs in self.acc.items()
+                             if n in self.api and n not in self.written and self.api[n].axes == ir.AXES_IJK
+                             for a in accs if (a.mi, a.ii) == (u.mi, u.ii) and not a.write},
+                            key=lambda p: (order[p[0]], p[1]))
+            if planes and all(np.dtype(self.api[n].dtype).itemsize in (4, 8) for n, _ in planes):
+                loop.pipe = planes
+        bi, bj = DEFAULT_BLOCK
+        ring_bytes = 0
+        for n, _dk in self.ring_planes():
+            e, isz = self.impl.extent_of(n), np.dtype(self.api[n].dtype).itemsize
+            rows, cols = bi + e.i[1] - e.i[0], bj + _ring_cols(e.j[1] - e.j[0], isz)
+            ring_bytes += PIPE_DEPTH * _round_up(rows * cols * isz, _SMEM_ALIGN)
+        if ring_bytes > _pipe_smem(bi * bj):
+            for loop in self.loops:
+                loop.pipe = []
+
+    def ring_planes(self) -> List[Tuple[str, int]]:
+        """Every (input, plane offset) some loop streams through a ring, each once."""
+        out: List[Tuple[str, int]] = []
+        for loop in self.loops:
+            out += [p for p in loop.pipe if p not in out]
+        return out
+
+    def _inline_temps(self) -> None:
+        """Mark ``inline`` each plane temporary of a pipelined loop that one
+        unmasked assignment, alone in its stage, computes from the loop's
+        staged planes, scalars and other inline temporaries; then group the
+        stages that are left.  Not where the value is a product, which a
+        reader's sum could fuse into one fma where the stored value is
+        rounded first: the outputs keep their bits."""
+        found = True
+        while found:
+            found = False
+            for n, t in self.temps.items():
+                writes = [a for a in self.acc.get(n, ()) if a.write]
+                if t.kind != "plane" or t.masked or len(writes) != 1:
+                    continue
+                w = writes[0]
+                loop = self.loop_of[(w.mi, w.ii)]
+                stmts = self.impl.multi_stages[w.mi].intervals[w.ii].stages[w.si].stmts
+                if not loop.pipe or len(stmts) != 1 or not isinstance(stmts[0], ir.Assign):
+                    continue
+                value = stmts[0].value
+                if _may_fuse(value) or not all(
+                        (fa.name, fa.offset[2]) in loop.pipe
+                        or (fa.offset[2] == 0 and getattr(self.temps.get(fa.name), "kind", None) == "inline")
+                        for fa in ir.walk_exprs(value) if isinstance(fa, ir.FieldAccess)):
+                    continue
+                t.kind, t.expr = "inline", value
+                found = True
+        dropped: Dict[Tuple[int, int], Set[int]] = {}
+        for n, t in self.temps.items():
+            if t.kind == "inline":
+                for a in self.acc[n]:
+                    if a.write:
+                        dropped.setdefault((a.mi, a.ii), set()).add(a.si)
+        for (mi, ii), skip in dropped.items():
+            self.groups[(mi, ii)] = _groups(self.impl.multi_stages[mi].intervals[ii], skip)
+        for t in self.temps.values():
+            if t.kind == "reg" and (t.group[0], t.group[1]) in dropped:
+                a = self.acc[t.name][0]
+                t.group = (a.mi, a.ii, self.group_of(a.mi, a.ii, a.si))
+
     # -- shared memory ----------------------------------------------------------
 
     def _layout_smem(self) -> None:
         """Byte offsets of every shared-memory plane, and the estimate terms
-        ``(extra_rows, extra_cols, planes, itemsize)`` of ``_smem_bytes``."""
+        ``(extra_rows, extra_cols, planes, itemsize)`` of ``_smem_bytes``.
+        A ring's rows are widened to whole 16-byte chunks (``_ring_cols``)."""
         self.smem_terms: List[Tuple[int, int, int, int]] = []
         self.smem_off: Dict[str, int] = {}
         off = 0
@@ -840,10 +979,16 @@ class _Plan:
             self.smem_terms.append((er, ec, planes, isz))
             off += _round_up((self.bi + er) * (self.bj + ec) * isz, _SMEM_ALIGN) * planes
 
-        for n, dk in self.staged_planes():
+        ring = self.ring_planes()
+        self.depth = PIPE_DEPTH if ring else 0
+        staged = self.staged_planes()
+        for n, dk in staged + [p for p in ring if p not in staged]:
             e = self.impl.extent_of(n)
-            add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 2 if self.async_staging else 1,
-                np.dtype(self.api[n].dtype).itemsize)
+            isz = np.dtype(self.api[n].dtype).itemsize
+            if (n, dk) in ring:
+                add(_staged_key(n, dk), e.i[1] - e.i[0], _ring_cols(e.j[1] - e.j[0], isz), self.depth, isz)
+            else:
+                add(_staged_key(n, dk), e.i[1] - e.i[0], e.j[1] - e.j[0], 2 if self.double_buffer else 1, isz)
         for t in self.temps.values():
             if t.kind == "plane":
                 add(t.name, t.rows_extra, t.cols_extra, 1, t.itemsize)
@@ -857,6 +1002,36 @@ class _Plan:
 
 def _staged_key(name: str, dk: int) -> str:
     return f"{name}@{dk}"
+
+
+def _pipe_smem(threads: int) -> int:
+    """The shared memory a block of ``threads`` asks for in a pipelined
+    kernel, at least: what leaves an SM room for ``PIPE_THREADS`` resident
+    threads and no more."""
+    return _SMEM_SM // -(-PIPE_THREADS // threads) - _SMEM_BLOCK_RESERVED
+
+
+def _ring_cols(cols_extra: int, itemsize: int) -> int:
+    """A ring row's columns beyond the tile's: the input's extra columns and
+    room to start the row at the 16-byte boundary below its first element,
+    rounded up to whole 16-byte chunks (the tile's width is a whole number
+    of chunks where the copies are wide)."""
+    per = _SMEM_ALIGN // itemsize
+    return _round_up(cols_extra + per - 1, per)
+
+
+def _may_fuse(e: ir.Expr) -> bool:
+    """Whether an expression's value may be a product, which a sum reading it
+    could fuse into one fma."""
+    if isinstance(e, ir.BinOp):
+        return e.op == "*"
+    if isinstance(e, ir.UnaryOp):
+        return _may_fuse(e.operand)
+    if isinstance(e, ir.TernaryOp):
+        return _may_fuse(e.true_expr) or _may_fuse(e.false_expr)
+    if isinstance(e, ir.Cast):
+        return _may_fuse(e.expr)
+    return False
 
 
 def _dk_tag(dk: int) -> str:
@@ -887,6 +1062,8 @@ class _CPrinter:
         self.shift = 0
         self.rings: Dict[str, _Ring] = {}
         self.at: Tuple[int, int, int] = (0, 0, 0)
+        # the horizontal offset an inline temporary's value is printed at
+        self.shift_ij: Tuple[int, int] = (0, 0)
 
     def literal(self, e: ir.Literal) -> str:
         if e.dtype == "bool" or isinstance(e.value, bool):
@@ -904,7 +1081,8 @@ class _CPrinter:
             lag = ring.served.get(self.at + (fa.offset[2],))
             if lag is not None:
                 return f"r_{fa.name}_{lag}"
-        return self._memory(fa.name, fa.offset)
+        si, sj = self.shift_ij
+        return self._memory(fa.name, (fa.offset[0] + si, fa.offset[1] + sj, fa.offset[2]))
 
     def _memory(self, n: str, offset: Tuple[int, int, int]) -> str:
         di, dj, dk = offset
@@ -912,6 +1090,12 @@ class _CPrinter:
         if t is not None:
             if t.kind == "reg":
                 return f"r_{n}"
+            if t.kind == "inline":
+                outer, self.shift_ij = self.shift_ij, (di, dj)
+                try:
+                    return f"({self.expr(t.expr)})"
+                finally:
+                    self.shift_ij = outer
             if t.kind == "plane":
                 return f"P_{n}({di}, {dj})"
             if t.kind in ("window", "plane_ring"):
@@ -1032,6 +1216,21 @@ __device__ __forceinline__ void gt_cp_async(void* dst, const void* src) {
 __device__ __forceinline__ void gt_cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 """
 
+# the load pipeline's copies, in the kernels that have one
+_PIPE_PRELUDE = r"""
+// 16 bytes from device to shared memory, asynchronously: the first src_bytes
+// read, the rest zero-filled (a row's last chunk reads nothing past the row)
+__device__ __forceinline__ void gt_cp_async16(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+// close this thread's copies issued since the last commit into one group
+__device__ __forceinline__ void gt_cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's newest groups are still in flight
+template <int N>
+__device__ __forceinline__ void gt_cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+"""
+
 
 def _region_loop(em: Emitter, ext_i: Tuple[int, int], ext_j: Tuple[int, int]) -> None:
     """Open a loop of the block's threads over the tile (clipped to the
@@ -1107,10 +1306,16 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     em.line(f"#define BJ {plan.bj}")
     em.line("#define NT (BI * BJ)")
     em.line(f"#define SMEM_BYTES {plan.smem_bytes}")
+    smem = "SMEM_BYTES"
+    if plan.ring_planes():
+        # the shared memory a block asks for: at most PIPE_THREADS resident threads an SM
+        smem = "SMEM_LAUNCH"
+        em.line(f"#define SMEM_LAUNCH {max(plan.smem_bytes, _pipe_smem(plan.bi * plan.bj))}")
     if members:
         em.line("// member grid axis: blockIdx.z is the ensemble member; each field moves by its")
         em.line("// member stride (0 for a field the members share), scratch by a member's blocks")
-    for ln in _PRELUDE.strip("\n").splitlines():
+    ring = plan.ring_planes()
+    for ln in (_PRELUDE + (_PIPE_PRELUDE if ring else "")).strip("\n").splitlines():
         em.line(ln)
     em.line()
 
@@ -1125,11 +1330,19 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
                     f" + (long long)(oj_{n} + j0 + jj + (dj)) * st_{n}_1]")
         else:
             em.line(f"#define A_{n}(dk) f_{n}[(long long)(ok_{n} + k + (dk)) * st_{n}_0]")
-    for n, dk in plan.staged_planes():
+    staged = plan.staged_planes()
+    for n, dk in staged + [p for p in ring if p not in staged]:
         e = impl.extent_of(n)
+        if (n, dk) in ring:
+            # slot ``stg`` of the ring; a row starts ``sh_<n>`` elements before
+            # the input's first column, at a 16-byte boundary where copies are wide
+            w = plan.bj + _ring_cols(e.j[1] - e.j[0], np.dtype(plan.api[n].dtype).itemsize)
+            em.line(f"#define S_{n}_{_dk_tag(dk)}(di, dj) ss_{n}_{_dk_tag(dk)}[stg * {_ring_slot_elems(plan, n)}"
+                    f" + (ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}) + sh_{n})]")
+            continue
         w = plan.bj + e.j[1] - e.j[0]
         # double-buffered: ``stg`` is the buffer of the plane being computed
-        buf = f"stg * {_staged_plane_elems(plan, n)} + " if plan.async_staging else ""
+        buf = f"stg * {_staged_plane_elems(plan, n)} + " if plan.double_buffer else ""
         em.line(f"#define S_{n}_{_dk_tag(dk)}(di, dj) ss_{n}_{_dk_tag(dk)}"
                 f"[{buf}(ii + (di) - ({e.i[0]})) * {w} + (jj + (dj) - ({e.j[0]}))]")
     for t in plan.temps.values():
@@ -1179,6 +1392,7 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
     else:
         em.line("const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;")
     em.line("(void)blk; (void)nk;")
+    _emit_ring_chunks(em, plan)
     full = plan.full_temps()
     for t in full:
         # the zero-initialized temporary: its k margins always, all of it
@@ -1221,14 +1435,14 @@ def _generate(impl: ir.StencilImplementation, block: Tuple[int, int], async_stag
         em.line("const dim3 grid((nj + BJ - 1) / BJ, (ni + BI - 1) / BI, nm);")
     else:
         em.line("const dim3 grid((nj + BJ - 1) / BJ, (ni + BI - 1) / BI);")
-    em.line(f"if (SMEM_BYTES > {SMEM_DEFAULT_LIMIT}) {{")
+    em.line(f"if ({smem} > {SMEM_DEFAULT_LIMIT}) {{")
     em.push()
     em.line(f"cudaError_t e = cudaFuncSetAttribute(k_{kname}, "
-            "cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);")
+            f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});")
     em.line("if (e != cudaSuccess) return (int)e;")
     em.pop()
     em.line("}")
-    em.line(f"k_{kname}<<<grid, block, SMEM_BYTES, (cudaStream_t)stream>>>({', '.join(call_args)});")
+    em.line(f"k_{kname}<<<grid, block, {smem}, (cudaStream_t)stream>>>({', '.join(call_args)});")
     em.line("return (int)cudaGetLastError();")
     em.pop()
     em.line("}")
@@ -1261,11 +1475,14 @@ def _emit_loop(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop) -> None:
     """One loop over k: a single interval plane by plane, or a walk, whose
     step ``t`` runs each unit at its level ``k = t + shift`` where its
     interval holds it."""
+    if loop.pipe:
+        _emit_pipeline(em, plan, pr, loop)
+        return
     impl = plan.impl
     walk = loop.walk
     ivs = [impl.multi_stages[u.mi].intervals[u.ii].interval for u in loop.units]
     backward = impl.multi_stages[loop.units[0].mi].order == ir.IterationOrder.BACKWARD
-    prefetch = plan.async_staging and bool(loop.planes)
+    prefetch = plan.double_buffer and bool(loop.planes)
     pr.rings = loop.rings
     guards = None
     var, lo, hi = ("t", "t0", "t1") if walk else ("k", "k0", "k1")
@@ -1285,6 +1502,8 @@ def _emit_loop(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop) -> None:
             em.line(f"{ct} " + ", ".join(f"r_{n}_{d} = {ct}(0)" for d in range(ring.depth + 1)) + ";")
     else:
         em.line(f"const int k0 = {bound_expr(ivs[0].start)}, k1 = {bound_expr(ivs[0].end)};")
+    if not prefetch and set(loop.planes) & set(plan.ring_planes()):
+        em.line("const int stg = 0;")  # a plane a pipelined loop also stages: its ring's first slot
     if prefetch:
         # the first plane's copy starts before the loop
         em.line("int stg = 0;")
@@ -1341,6 +1560,149 @@ def _emit_loop(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop) -> None:
     em.line("}")
     em.pop()
     em.line("}")
+
+
+def _emit_pipeline(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop) -> None:
+    """A loop that streams its inputs (``_Loop.pipe``): planes ``k0 .. k0 +
+    D - 2`` are copied before it, each a group; at plane ``k`` one barrier,
+    after this thread's group of plane ``k`` has landed, shows every thread
+    its copies and frees the slot plane ``k - 1`` used, which plane ``k + D -
+    1`` then fills while plane ``k``'s stages compute.  The stages' groups
+    end without a barrier but between one another; one after the loop."""
+    u = loop.units[0]
+    iv = plan.impl.multi_stages[u.mi].intervals[u.ii].interval
+    depth = plan.depth
+    pr.rings = {}
+    em.line("{")
+    em.push()
+    em.line(f"const int k0 = {bound_expr(iv.start)}, k1 = {bound_expr(iv.end)};")
+    em.line(f"// the load pipeline: {depth} slots a staged plane, planes k + 1 .. k + {depth - 1} in flight")
+    em.line(f"for (int d = 0; d < {depth - 1} && k0 + d < k1; ++d) {{")
+    em.push()
+    em.line("const int k = k0 + d, stg = d;")
+    _emit_ring_copies(em, plan, loop.pipe)
+    em.line("gt_cp_async_commit();")
+    em.pop()
+    em.line("}")
+    em.line("int stg = 0;")
+    em.line("for (int k = k0; k < k1; ++k) {")
+    em.push()
+    em.line(f"// plane k has landed: all but the newest {depth - 2} groups, every group in the last planes")
+    em.line(f"if (k + {depth - 1} <= k1) gt_cp_async_wait<{depth - 2}>(); else gt_cp_async_wait_all();")
+    em.line("__syncthreads();")
+    em.line(f"if (k + {depth - 1} < k1) {{")
+    em.push()
+    em.line(f"// plane k + {depth - 1} into the slot plane k - 1 used")
+    em.line(f"const int k_next = k + {depth - 1}, stg_next = stg == 0 ? {depth - 1} : stg - 1;")
+    em.line("{")
+    em.push()
+    em.line("const int k = k_next, stg = stg_next;")
+    _emit_ring_copies(em, plan, loop.pipe)
+    em.pop()
+    em.line("}")
+    em.line("gt_cp_async_commit();")
+    em.pop()
+    em.line("}")
+    prologue = _prologue(plan, u)
+    for ln in prologue:
+        em.line(ln)
+    if prologue:
+        em.line("__syncthreads();")
+    _emit_groups(em, plan, pr, u, None, last_sync=False)
+    em.line(f"stg = stg == {depth - 1} ? 0 : stg + 1;")
+    em.pop()
+    em.line("}")
+    em.line("__syncthreads();")
+    em.pop()
+    em.line("}")
+
+
+def _emit_ring_copies(em: Emitter, plan: _Plan, planes: List[Tuple[str, int]]) -> None:
+    """Start the copies of plane ``k`` (plus each input's vertical offset) of
+    ``planes``, tile plus extent, into slot ``stg`` of their rings: whole
+    16-byte chunks where the input's copies are wide (the last of a row reads
+    only the row), else one element a copy.  A thread's first chunk is the
+    one ``_emit_ring_chunks`` placed; a loop places the others where the
+    block's region can have more chunks than the block has threads."""
+    nt = plan.bi * plan.bj
+    for n, dk in planes:
+        e = plan.impl.extent_of(n)
+        rows, ec = plan.bi + e.i[1] - e.i[0], e.j[1] - e.j[0]
+        isz = np.dtype(plan.api[n].dtype).itemsize
+        per = _SMEM_ALIGN // isz
+        tag = _dk_tag(dk)
+        dst = f"ss_{n}_{tag} + stg * {_ring_slot_elems(plan, n)} + so_{n}"
+        src = f"f_{n} + go_{n} + (long long)(ok_{n} + k + ({dk})) * st_{n}_2"
+        em.line(f"// stage {n}[k{dk:+d}] plane, tile plus halo")
+        em.line(f"if (tid < nq_{n}) {{")
+        em.push()
+        em.line(f"if (wide_{n}) gt_cp_async16({dst}, {src}, by_{n});")
+        em.line(f"else gt_cp_async<{isz}>({dst}, {src});")
+        em.pop()
+        em.line("}")
+        loops = []
+        if plan.bj % per == 0 and rows * -(-(plan.bj + ec + per - 1) // per) > nt:
+            loops.append((f"wide_{n}", [
+                f"const int ii = p / nc_{n} + ({e.i[0]}), c = p % nc_{n} * {per}, jj = c - sh_{n} + ({e.j[0]});",
+                f"gt_cp_async16(&S_{n}_{tag}(0, 0), &A_{n}(0, 0, {dk}), min({per}, sh_{n} + tj + {ec} - c) * {isz});"]))
+        if rows * (plan.bj + ec) > nt:
+            loops.append((f"!wide_{n}", [
+                f"const int ii = p / nc_{n} + ({e.i[0]}), jj = p % nc_{n} + ({e.j[0]});",
+                f"gt_cp_async<{isz}>(&S_{n}_{tag}(0, 0), &A_{n}(0, 0, {dk}));"]))
+        for cond, body in loops:
+            em.line(f"if ({cond}) {{")
+            em.push()
+            em.line(f"for (int p = tid + NT; p < nq_{n}; p += NT) {{")
+            em.push()
+            for ln in body:
+                em.line(ln)
+            em.pop()
+            em.line("}")
+            em.pop()
+            em.line("}")
+
+
+def _emit_ring_chunks(em: Emitter, plan: _Plan) -> None:
+    """For each input a ring stages: whether its copies are wide, the shift
+    ``sh_<n>`` of its rows in the slots, its region's chunks a row
+    (``nc_<n>``: 16-byte chunks, or elements) and in all (``nq_<n>``), and
+    this thread's first chunk: its offset in a slot (``so_<n>``), in the
+    field but for the level (``go_<n>``) and the bytes it reads (``by_<n>``),
+    the same at every plane."""
+    for n in dict.fromkeys(n for n, _dk in plan.ring_planes()):
+        e = plan.impl.extent_of(n)
+        er, ec = e.i[1] - e.i[0], e.j[1] - e.j[0]
+        isz = np.dtype(plan.api[n].dtype).itemsize
+        per = _SMEM_ALIGN // isz
+        w = plan.bj + _ring_cols(ec, isz)
+        em.line(f"// {n}: 16-byte copies where its rows start 16-byte aligned, else one element a copy")
+        if plan.bj % per:
+            em.line(f"const bool wide_{n} = false;")
+        else:
+            em.line(f"const bool wide_{n} = st_{n}_1 == 1 && st_{n}_0 % {per} == 0 && st_{n}_2 % {per} == 0"
+                    f" && ((unsigned long long)f_{n} & {_SMEM_ALIGN - 1}) == 0;")
+        em.line(f"const int sh_{n} = wide_{n} ? (oj_{n} + j0 + ({e.j[0]})) % {per} : 0;")
+        em.line(f"const int nc_{n} = wide_{n} ? (sh_{n} + tj + {ec + per - 1}) / {per} : tj + {ec}, "
+                f"nq_{n} = (ti + {er}) * nc_{n};")
+        em.line(f"int so_{n} = 0, by_{n} = 0;")
+        em.line(f"long long go_{n} = 0;")
+        em.line(f"if (tid < nq_{n}) {{")
+        em.push()
+        em.line(f"const int ii = tid / nc_{n} + ({e.i[0]}), c = tid % nc_{n} * (wide_{n} ? {per} : 1);")
+        em.line(f"const int jj = c - sh_{n} + ({e.j[0]});")
+        em.line(f"so_{n} = (ii - ({e.i[0]})) * {w} + c;")
+        em.line(f"go_{n} = (long long)(oi_{n} + i0 + ii) * st_{n}_0 + (long long)(oj_{n} + j0 + jj) * st_{n}_1;")
+        em.line(f"by_{n} = min({per}, sh_{n} + tj + {ec} - c) * {isz};")
+        em.pop()
+        em.line("}")
+
+
+def _ring_slot_elems(plan: _Plan, name: str) -> int:
+    """Elements of one slot of a ring (16-byte aligned)."""
+    e = plan.impl.extent_of(name)
+    isz = np.dtype(plan.api[name].dtype).itemsize
+    w = plan.bj + _ring_cols(e.j[1] - e.j[0], isz)
+    return _round_up((plan.bi + e.i[1] - e.i[0]) * w * isz, _SMEM_ALIGN) // isz
 
 
 def _emit_walk_step(em: Emitter, plan: _Plan, pr: _CPrinter, loop: _Loop, ivs) -> None:
@@ -1401,22 +1763,33 @@ def _hazard(a, b) -> bool:
                for n in ta.keys() & tb.keys())
 
 
-def _emit_groups(em: Emitter, plan: _Plan, pr: _CPrinter, u: _Unit, pending) -> None:
+def _emit_groups(em: Emitter, plan: _Plan, pr: _CPrinter, u: _Unit, pending, last_sync: bool = True) -> None:
     """A unit's groups of stages at level ``k``.  With ``pending`` None each
-    group ends with a barrier; else (a walk's unit) a barrier comes before a
-    group only where ``_hazard`` says, against the unit's groups since the
-    last one."""
+    group ends with a barrier (the last one only with ``last_sync``); else (a
+    walk's unit) a barrier comes before a group only where ``_hazard`` says,
+    against the unit's groups since the last one."""
     itv = plan.impl.multi_stages[u.mi].intervals[u.ii]
     pr.shift = u.shift
-    pr.staged = {(n, dk + u.shift) for n, dk in plan.staged.get((u.mi, u.ii), [])}
-    for g, stages in enumerate(plan.groups[(u.mi, u.ii)]):
+    pipe = plan.loop_of[(u.mi, u.ii)].pipe
+    pr.staged = set(pipe) if pipe else {(n, dk + u.shift) for n, dk in plan.staged.get((u.mi, u.ii), [])}
+    groups = plan.groups[(u.mi, u.ii)]
+    for g, stages in enumerate(groups):
         ext = itv.stages[stages[0]].compute_extent
         if pending is not None:
             mine = _group_touches(plan, u, stages)
             if any(_hazard(p, mine) for p in pending):
                 em.line("__syncthreads();")
                 pending = []
-        _region_loop(em, ext.i, ext.j)
+        if pipe and (ext.i, ext.j) == ((0, 0), (0, 0)):
+            # each thread's own point of the tile: no division, and the
+            # point's addresses are the same at every plane
+            em.line("{")
+            em.push()
+            em.line("if (threadIdx.y < ti && threadIdx.x < tj) {")
+            em.push()
+            em.line("const int ii = threadIdx.y, jj = threadIdx.x;")
+        else:
+            _region_loop(em, ext.i, ext.j)
         for t in plan.temps.values():
             if t.kind == "reg" and t.group == (u.mi, u.ii, g):
                 em.line(f"{t.ctype} r_{t.name} = {t.ctype}(0);")
@@ -1424,7 +1797,7 @@ def _emit_groups(em: Emitter, plan: _Plan, pr: _CPrinter, u: _Unit, pending) -> 
             pr.at = (u.mi, u.ii, si)
             for stmt in itv.stages[si].stmts:
                 pr.stmt(em, stmt)
-        _close_region_loop(em, sync=pending is None)
+        _close_region_loop(em, sync=pending is None and (last_sync or g < len(groups) - 1))
         if pending is not None:
             pending.append(mine)
 
@@ -1479,6 +1852,26 @@ def _k_walks(plan: _Plan) -> List[Dict[str, Any]]:
              "registers": {n: ring.depth for n, ring in loop.rings.items()}} for loop in plan.loops if loop.walk]
 
 
+def _prefetch(plan: _Plan) -> List[Dict[str, Any]]:
+    """Each pipelined loop: its multi-stage, interval (and its bounds as
+    ``AxisBound.key()``), ring depth, copy width in bytes (one element where
+    a field's rows do not start 16-byte aligned) and staged inputs, as (name,
+    plane offset, (ilo, ihi, jlo, jhi) of the region copied)."""
+    out = []
+    for loop in plan.loops:
+        if not loop.pipe:
+            continue
+        u = loop.units[0]
+        iv = plan.impl.multi_stages[u.mi].intervals[u.ii].interval
+        out.append({
+            "ms": u.mi, "interval": "[{}, {})".format(bound_expr(iv.start), bound_expr(iv.end)),
+            "bounds": (iv.start.key(), iv.end.key()), "depth": plan.depth, "width": _SMEM_ALIGN,
+            "inputs": [(n, dk, tuple(x for ax in (plan.impl.extent_of(n).i, plan.impl.extent_of(n).j) for x in ax))
+                       for n, dk in loop.pipe],
+        })
+    return out
+
+
 def generate_cuda_module_source(
     impl: ir.StencilImplementation,
     block: Tuple[int, int] = DEFAULT_BLOCK,
@@ -1486,11 +1879,14 @@ def generate_cuda_module_source(
     member_scalars: Optional[Tuple[str, ...]] = None,
 ) -> str:
     """The Python module of a ``cuda`` stencil: the CUDA source and the
-    metadata the launcher and the autotuner read.  The staged input planes
-    are double-buffered and the next one is filled by ``cp.async`` while the
-    current one computes; ``async_staging=False`` stages them with plain
-    loads instead, a kernel that exists only so that ``chip_smoke.py`` can
-    time the prefetch against it (no stencil option reaches it).
+    metadata the launcher and the autotuner read.  A PARALLEL loop streams
+    its inputs through the load pipeline (module docstring); elsewhere the
+    staged input planes are double-buffered and the next one is filled by
+    ``cp.async`` while the current one computes.  ``async_staging=False``
+    stages only the planes read beyond their column, with plain loads, and
+    stores every plane temporary: a kernel that exists only so that
+    ``chip_smoke.py`` can time the prefetch against it (no stencil option
+    reaches it).
 
     ``member_scalars`` (a tuple, possibly empty) generates the member-batched
     kernel an ensemble launches once for all its members: a third grid axis
@@ -1509,6 +1905,7 @@ def generate_cuda_module_source(
         async_staging=plan.async_staging,
         parallel_sweeps=dict(plan.sweeps),
         k_walks=_k_walks(plan),
+        prefetch=_prefetch(plan),
     )
     em = Emitter()
     em.line(f'"""Auto-generated by repro_torch.core — stencil {impl.name!r}, backend \'cuda\'."""')
@@ -1780,6 +2177,7 @@ class CudaKernel(CountedKernel):
         fn = self._load()
         args.append(ctypes.c_void_p(stream.cuda_stream))
         scratch_bytes = sum(buf.numel() * buf.element_size() for buf in scratch)
+        prefetch_bytes = self.prefetch_bytes(domain, nm)
         span_name = f"launch {self.key}"
 
         def _launch() -> None:
@@ -1789,7 +2187,7 @@ class CudaKernel(CountedKernel):
                 rc = fn(*args)
             if rc != 0:
                 raise RuntimeError(f"cuda backend: launch of {self.key} failed with cudaError {rc}")
-            self.count_launch(scratch_bytes)
+            self.count_launch(scratch_bytes, prefetch_bytes)
 
         _launch.scratch = scratch  # the buffers live as long as the launcher
         _launch.keep = keep
@@ -1800,6 +2198,21 @@ class CudaKernel(CountedKernel):
         ``nblocks`` blocks of ``nk`` levels."""
         bi, bj = self.module.BLOCK
         return [(nblocks * (bi + er) * (bj + ec) * (nk + ek), dt) for _name, dt, er, ec, ek in self.module.SCRATCH]
+
+    def prefetch_bytes(self, domain, members: int = 1) -> int:
+        """Bytes one launch over ``domain`` brings through its load
+        pipeline's rings: each staged plane's region, tile plus extent clipped
+        to the domain, over every block, once a level of its loop."""
+        ni, nj, nk = (int(d) for d in domain)
+        bi, bj = self.module.BLOCK
+        nbi, nbj = -(-ni // bi), -(-nj // bj)
+        isz = {name: np.dtype(dt).itemsize for name, _axes, dt, *_ in self.module.FIELDS}
+        total = 0
+        for entry in self.module.SCHEDULE["prefetch"]:
+            k0, k1 = ((0 if level == 0 else nk) + off for level, off in entry["bounds"])
+            total += max(0, k1 - k0) * sum((ni + nbi * (ihi - ilo)) * (nj + nbj * (jhi - jlo)) * isz[name]
+                                           for name, _dk, (ilo, ihi, jlo, jhi) in entry["inputs"])
+        return total * int(members)
 
     def scratch_bytes(self, domain, members: int = 1) -> int:
         """Bytes of per-block scratch one launch over ``domain`` writes."""
